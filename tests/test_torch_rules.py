@@ -1,0 +1,151 @@
+"""The port's package rules.
+
+- No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax`` or
+  the JAX package ``repro``, and importing every module of the port leaves
+  both out of ``sys.modules``.
+- Entry points run on the GPU by default: without one they raise instead of
+  running on the CPU, and a kernel wrapper given a tensor on a device other
+  than the CPU launches its kernel or raises, never falls back.
+- ``chip_smoke.py`` exits non-zero, printing no result, without a GPU and
+  in a directory that holds nothing else of the repository.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import importlib, pkgutil, sys, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_without_a_gpu_the_entry_points_raise(monkeypatch):
+    from repro_torch.core.engine import EngineConfig, run_query
+    from repro_torch.device import resolve_device
+    from repro_torch.queryproc import queries, tpch
+    from repro_torch.storage.catalog import Catalog
+    cat = tpch.build_catalog(sf=0.1, num_nodes=1, rows_per_partition=2000,
+                             device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        Catalog(1)
+    with pytest.raises(RuntimeError):
+        tpch.build_catalog(sf=0.1)
+    with pytest.raises(RuntimeError):
+        run_query(queries.build_query("Q6"), cat, EngineConfig())
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_do_not_fall_back_to_the_plain_version():
+    from repro_torch.kernels import fused_scan_agg as fsa
+    from repro_torch.kernels import grouped_agg as ga
+    from repro_torch.kernels import ops as kops
+    from repro_torch.queryproc.expressions import Col
+    meta = torch.device("meta")
+    ids = torch.zeros(64, dtype=torch.int32, device=meta)
+    vals = torch.zeros(64, dtype=torch.float64, device=meta)
+    with pytest.raises(ValueError):
+        ga.grouped_agg(ids, vals, 4)
+    with pytest.raises(ValueError):
+        fsa.fused_scan_agg(None, (), ids, vals, 4)
+    with pytest.raises(ValueError):
+        kops.predicate_bitmap({"a": ids}, Col("a") < 3)
+    # a CPU tensor of the wrong dtype or shape raises too
+    with pytest.raises(TypeError):
+        ga.grouped_agg(torch.zeros(4, dtype=torch.int64), None, 4)
+    with pytest.raises(ValueError):
+        ga.grouped_agg(torch.zeros(4, dtype=torch.int32),
+                       torch.zeros(5, dtype=torch.float64), 4)
+
+
+def _run_smoke(cwd: Path):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=_env() if cwd == ROOT else None,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_phases_run_on_the_cpu():
+    """The script's checks at a small size through the plain versions: sf=10
+    with 6000-row partitions has the card run's 100 lineitem partitions over
+    4 nodes, so the power-0.1 split check is exercised too."""
+    import importlib.util
+    import time
+    from repro_torch.queryproc import tpch
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    cat = tpch.build_catalog(sf=10, num_nodes=4, rows_per_partition=6000,
+                             device="cpu")
+    records, extra = smoke.kernel_phase(cat, host_ms)
+    assert set(records) == {"predicate_bitmap", "fused_scan_agg",
+                            "grouped_agg"}
+    assert all(r["bound_by"] == "bytes" and r["bound_ms"] > 0
+               for r in [*records.values(), *extra])
+    # CPU tensors run the plain versions, which count no launch
+    assert smoke.engine_phase(cat, lambda: None) == {
+        "predicate_bitmap": 0, "fused_scan_agg": 0, "grouped_agg": 0}
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run in full")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert out.stdout == ""
