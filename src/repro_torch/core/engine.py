@@ -18,6 +18,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import runtime
 from repro_torch.core.cost import RequestCost, StorageResources
@@ -93,17 +94,22 @@ def nonpushable_time(merged: Dict[str, ColumnTable], cfg: EngineConfig
     return b / (cfg.compute_bw * cfg.num_compute_nodes)
 
 
-def run_query(query, catalog: Catalog, cfg: EngineConfig) -> QueryRun:
+def run_query(query, catalog: Catalog, cfg: EngineConfig,
+              requests: Optional[List[PlannedRequest]] = None,
+              bitmaps: Optional[Dict[int, torch.Tensor]] = None) -> QueryRun:
     """Plan, arbitrate, execute and finish one query on ``cfg.device``
-    (the GPU unless it says ``"cpu"``), which must hold the catalog."""
+    (the GPU unless it says ``"cpu"``), which must hold the catalog.
+    ``requests`` replaces the planned requests (e.g. recosted by
+    ``core.bitmap.rewrite_all``); ``bitmaps`` maps request ids to the
+    packed words their ``apply_bitmap`` plans filter with."""
     dev = resolve_device(cfg.device)
     if catalog.device != dev:
         raise ValueError(f"catalog lives on {catalog.device}, the engine is "
                          f"configured for {dev}")
-    reqs = plan_requests(query, catalog)
+    reqs = requests if requests is not None else plan_requests(query, catalog)
     sim = simulate([SimRequest(r.req_id, r.part.node_id, query.qid, r.cost)
                     for r in reqs], cfg.res, cfg.mode)
-    split = runtime.execute_split(reqs, sim.decisions())
+    split = runtime.execute_split(reqs, sim.decisions(), bitmaps)
     if split.n_pushdown != sim.admitted(query.qid):
         raise RuntimeError(f"{query.qid}: executed {split.n_pushdown} "
                            f"pushdowns, arbitrated {sim.admitted(query.qid)}")

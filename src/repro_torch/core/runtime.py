@@ -10,13 +10,18 @@ Port of the fault-free, in-process path of ``repro.core.runtime``:
 
 Per-partition results merge in original request order, so the merged
 tables are the same for any decision vector. Real bytes ride along:
-pushdown requests are charged their result bytes, pushback requests the
-stored bytes of their accessed columns (the simulator's ``s_in``).
+pushdown requests are charged their result bytes plus any packed bitmap
+they ship, pushback requests the stored bytes of their accessed columns
+(the simulator's ``s_in``). Requests of ``apply_bitmap`` plans carry the
+compute layer's words for their partition (``bitmaps``) down either
+path.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN
 from repro_torch.core.executor import CompiledPushPlan, compile_push_plan
@@ -55,9 +60,13 @@ class SplitExecution:
         return self.pushdown_bytes + self.pushback_bytes
 
 
-def result_bytes(result: ColumnTable) -> int:
-    """Bytes a pushdown result ships (64-byte floor for an empty one)."""
-    return result.nbytes(stored=False) if len(result) else 64
+def result_bytes(result: ColumnTable, aux: Dict) -> int:
+    """Bytes a pushdown result ships: its columns (64-byte floor for an
+    empty one) plus the packed bitmap of a ``bitmap_only`` plan."""
+    b = result.nbytes(stored=False) if len(result) else 64
+    if "bitmap" in aux:
+        b += aux["bitmap"].numel() * aux["bitmap"].element_size()
+    return int(b)
 
 
 def pushback_bytes(cplan: CompiledPushPlan, data: ColumnTable) -> int:
@@ -66,12 +75,16 @@ def pushback_bytes(cplan: CompiledPushPlan, data: ColumnTable) -> int:
                            stored=True))
 
 
-def execute_split(reqs, decisions: Dict[int, str]) -> SplitExecution:
+def execute_split(reqs, decisions: Dict[int, str],
+                  bitmaps: Optional[Dict[int, torch.Tensor]] = None
+                  ) -> SplitExecution:
     """Route every request down its decided path and merge.
 
     ``reqs`` are ``engine.PlannedRequest``s; ``decisions`` maps
-    ``req_id -> PUSHDOWN | PUSHBACK`` (missing ids default to pushdown).
-    Requests sharing a (table, plan, path) run as one fused batch."""
+    ``req_id -> PUSHDOWN | PUSHBACK`` (missing ids default to pushdown);
+    ``bitmaps`` maps ``req_id`` to the packed words an ``apply_bitmap``
+    plan filters its partition with. Requests sharing a (table, plan,
+    path) run as one fused batch."""
     per_req: Dict[int, ColumnTable] = {}
     out_by_id: Dict[int, RequestOutcome] = {}
     n_pd = n_pb = pd_bytes = pb_bytes = 0
@@ -89,10 +102,12 @@ def execute_split(reqs, decisions: Dict[int, str]) -> SplitExecution:
                 tabs = [r.part.data for r in sub]
             else:  # ship the raw projection, replay compute-side
                 tabs = [cplan.raw_projection(r.part.data) for r in sub]
-            for r, res in zip(sub, cplan.execute_batch_parts(tabs)):
+            bms = [bitmaps[r.req_id] for r in sub] if bitmaps else None
+            parts, aux = cplan.execute_batch_parts(tabs, bms)
+            for r, res, a in zip(sub, parts, aux):
                 per_req[r.req_id] = res
                 if path == PUSHDOWN:
-                    b = result_bytes(res)
+                    b = result_bytes(res, a)
                     pd_bytes += b
                     n_pd += 1
                 else:

@@ -1,17 +1,25 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-Three kernels carry this slice's path: ``predicate_bitmap``,
-``fused_scan_agg`` and ``grouped_agg`` (sources in ``csrc/``, built by
-``_build`` at first use). Each wrapper counts its launches in a plain
-integer attribute, ``<wrapper>.launches``.
+Six kernels, one for each TPU kernel of the JAX package:
+``predicate_bitmap``, ``fused_scan_agg`` and ``grouped_agg`` carry the
+pushed filters and aggregates; ``bitmap_apply``, ``hash_partition`` and
+``fused_scan_shuffle`` the §4.2 selection bitmap and shuffle (sources in
+``csrc/``, built by ``_build`` at first use). Each wrapper counts its
+launches in a plain integer attribute, ``<wrapper>.launches``.
 """
+from repro_torch.kernels import bitmap_apply as _ba
 from repro_torch.kernels import fused_scan_agg as _fsa
+from repro_torch.kernels import fused_scan_shuffle as _fss
 from repro_torch.kernels import grouped_agg as _ga
+from repro_torch.kernels import hash_partition as _hp
 from repro_torch.kernels import predicate_bitmap as _pb
 
 WRAPPERS = {"predicate_bitmap": _pb.predicate_bitmap,
             "fused_scan_agg": _fsa.fused_scan_agg,
-            "grouped_agg": _ga.grouped_agg}
+            "grouped_agg": _ga.grouped_agg,
+            "bitmap_apply": _ba.bitmap_apply,
+            "hash_partition": _hp.hash_partition,
+            "fused_scan_shuffle": _fss.fused_scan_shuffle}
 
 
 def reset_launches() -> None:

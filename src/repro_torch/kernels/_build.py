@@ -20,7 +20,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("predicate_bitmap", "fused_scan_agg")
+SOURCES = ("predicate_bitmap", "fused_scan_agg", "bitmap_apply", "shuffle")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -33,6 +33,12 @@ SIGNATURES = {
         "fused_scan_agg_launch": _PROG + [_P, _P, _I, _LL, _I, _P, _P, _I,
                                           _P],
         "grouped_agg_launch": [_P, _P, _I, _LL, _I, _P, _P, _I, _P]},
+    "bitmap_apply": {
+        "bitmap_apply_launch": [_P, _P, _I, _LL, _P, _P, _I, _P]},
+    "shuffle": {
+        "hash_partition_launch": [_P, _I, _LL, _I, _P, _P, _I, _P],
+        "fused_scan_shuffle_launch": _PROG + [_P, _I, _LL, _I, _P, _P, _P, _I,
+                                              _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

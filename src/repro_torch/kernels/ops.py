@@ -2,9 +2,8 @@
 
 A shim for the parity tests against the JAX package: it compiles the
 predicate on every call and casts counts to int32 as the JAX ops do. The
-engine calls the kernel wrappers (``predicate_bitmap``,
-``fused_scan_agg``, ``grouped_agg``) directly, with a program compiled
-once per plan, f64 sums and int64 counts.
+engine calls the kernel wrappers directly, with a program compiled once
+per plan, f64 sums and int64 counts.
 
 Any row count R (the kernels need no padding: the bitmap kernel masks
 its tail word by construction, the aggregation kernel drops ids outside
@@ -19,8 +18,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import bitmap_apply as _ba
 from repro_torch.kernels import fused_scan_agg as _fsa
+from repro_torch.kernels import fused_scan_shuffle as _fss
 from repro_torch.kernels import grouped_agg as _ga
+from repro_torch.kernels import hash_partition as _hp
 from repro_torch.kernels import predicate_bitmap as _pb
 from repro_torch.kernels.program import program_for
 from repro_torch.queryproc.expressions import Expr
@@ -56,3 +58,28 @@ def fused_scan_agg(cols: Dict[str, torch.Tensor], expr: Optional[Expr],
     pcols = [cols[n] for n in prog.columns] if prog is not None else []
     return _outputs(*_fsa.fused_scan_agg(prog, pcols, ids, values,
                                          num_groups), values)
+
+
+def bitmap_apply(words: torch.Tensor, col: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(masked column (R,), total selected count as a 0-d int32 tensor)."""
+    masked, count = _ba.bitmap_apply(words, col)
+    return masked, count.to(torch.int32)
+
+
+def hash_partition(keys: torch.Tensor, num_parts: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pids (R,) int32, rows per target (P,) int32)."""
+    pids, hist = _hp.hash_partition(keys, num_parts)
+    return pids, hist.to(torch.int32)
+
+
+def fused_scan_shuffle(cols: Dict[str, torch.Tensor], expr: Optional[Expr],
+                       keys: torch.Tensor, num_parts: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(words (ceil(R/32),) int32 of the rows passing ``expr`` (``None``
+    keeps every row), pids (R,) int32, kept rows per target (P,) int32)."""
+    prog = program_for(expr, cols) if expr is not None else None
+    pcols = [cols[n] for n in prog.columns] if prog is not None else []
+    words, pids, hist = _fss.fused_scan_shuffle(prog, pcols, keys, num_parts)
+    return words, pids, hist.to(torch.int32)

@@ -18,14 +18,18 @@ from repro_torch.kernels.program import (K_AND, K_CMP, K_CMP_COL, K_IN, MODES,
 _CMP = (torch.le, torch.lt, torch.ge, torch.gt, torch.eq)  # CMP_OPS order
 
 
+def words_from_uint32(w: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> int32 words with the same bits."""
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
 def pack_bitmap(mask: torch.Tensor) -> torch.Tensor:
     """(R,) bool -> (ceil(R/32),) int32 words holding uint32 bits."""
     n = mask.shape[0]
     pad = (-n) % 32
     m = torch.nn.functional.pad(mask.to(torch.int64), (0, pad))
     shifts = torch.arange(32, device=mask.device, dtype=torch.int64)
-    words = (m.reshape(-1, 32) << shifts).sum(dim=1)
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    return words_from_uint32((m.reshape(-1, 32) << shifts).sum(dim=1))
 
 
 def unpack_bitmap(words: torch.Tensor, n: int) -> torch.Tensor:
@@ -91,3 +95,51 @@ def fused_scan_agg(prog: Optional[Program], cols: Sequence[torch.Tensor],
 def grouped_agg(ids: torch.Tensor, values: Optional[torch.Tensor],
                 num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return fused_scan_agg(None, (), ids, values, num_groups)
+
+
+def bitmap_apply(words: torch.Tensor, col: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the column with the rows the words drop zeroed (R,), the number of
+    selected rows as a 0-d int64 tensor). Bits past R are ignored."""
+    keep = unpack_bitmap(words, col.shape[0])
+    masked = torch.where(keep, col, torch.zeros((), dtype=col.dtype,
+                                                device=col.device))
+    return masked, keep.sum()
+
+
+KNUTH = 2654435761
+
+
+def hash_partition_ids(keys: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Knuth multiplicative hash of the keys' low 32 bits:
+    ``((low32(key) * 2654435761 mod 2**32) >> 16) mod n`` as int32. The
+    product is formed from the key's 16-bit halves, so no int64 product
+    passes 2**63 (a full ``low32(key) * KNUTH`` does once low32(key) nears
+    3.47e9, as negative int32 keys do), and it is masked to 32 bits before
+    the shift and the modulo."""
+    if keys.is_floating_point():
+        raise TypeError("hash_partition_ids takes integer keys")
+    k = keys.to(torch.int64) & 0xFFFFFFFF
+    lo, hi = k & 0xFFFF, k >> 16
+    h = (lo * KNUTH + ((hi * KNUTH) & 0xFFFF) * 65536) & 0xFFFFFFFF
+    return ((h >> 16) % n_parts).to(torch.int32)
+
+
+def hash_partition(keys: torch.Tensor, n_parts: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pids (R,) int32, rows per target (P,) int64)."""
+    pids = hash_partition_ids(keys, n_parts)
+    return pids, torch.bincount(pids, minlength=n_parts)
+
+
+def fused_scan_shuffle(prog: Optional[Program], cols: Sequence[torch.Tensor],
+                       keys: torch.Tensor, n_parts: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(words (ceil(R/32),) of the rows that pass the program (every row
+    when ``prog`` is None), pids (R,) int32 of every row, kept rows per
+    target (P,) int64)."""
+    keep = (run_program(prog, cols) if prog is not None
+            else torch.ones(keys.shape, dtype=torch.bool, device=keys.device))
+    pids = hash_partition_ids(keys, n_parts)
+    return (pack_bitmap(keep), pids,
+            torch.bincount(pids[keep], minlength=n_parts))

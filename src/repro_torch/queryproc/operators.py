@@ -1,17 +1,24 @@
 """Relational operators over device ``ColumnTable``s.
 
-Port of ``repro.queryproc.operators``, trimmed to what this slice runs.
+Port of ``repro.queryproc.operators``, trimmed to what the port runs.
 Grouped sums, counts and means go through the ``grouped_agg`` kernel;
 min/max use ``scatter_reduce`` (the JAX package has no kernel for them).
+Of the §4.2 operators, ``selection_bitmap`` runs the ``predicate_bitmap``
+kernel (the compute layer builds Fig 4's words with it); the hash
+partition, ``shuffle_partition`` and the position vector are plain torch,
+the oracles the executor's shuffle kernels are held to.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import grouped_agg as gak
-from repro_torch.kernels.ref import pack_bitmap, unpack_bitmap  # noqa: F401
+from repro_torch.kernels import predicate_bitmap as pbk
+from repro_torch.kernels.program import program_for
+from repro_torch.kernels.ref import (hash_partition_ids, pack_bitmap,  # noqa: F401
+                                     unpack_bitmap)
 from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc.table import ColumnTable
 
@@ -22,6 +29,29 @@ DENSE_GROUP_LIMIT = 1 << 22
 
 def filter_table(t: ColumnTable, pred: ex.Expr) -> ColumnTable:
     return t.filter(ex.compile_expr(pred)(t.cols))
+
+
+def selection_bitmap(t: ColumnTable, pred: ex.Expr) -> torch.Tensor:
+    """Packed selection bitmap: int32 words holding uint32 bits, least
+    significant bit first."""
+    prog = program_for(pred, t.cols)
+    return pbk.predicate_bitmap(prog, [t.cols[c] for c in prog.columns])
+
+
+def apply_bitmap(t: ColumnTable, words: torch.Tensor) -> ColumnTable:
+    return t.filter(unpack_bitmap(words, len(t)))
+
+
+def shuffle_partition(t: ColumnTable, key: str, n_parts: int
+                      ) -> List[ColumnTable]:
+    pid = hash_partition_ids(t.cols[key], n_parts)
+    return [t.filter(pid == i) for i in range(n_parts)]
+
+
+def position_vector(t: ColumnTable, key: str, n_parts: int) -> torch.Tensor:
+    """Per-row destination (§4.2 cached-data interop): log2(n) bits a row
+    would do; int32 here, as in the JAX package."""
+    return hash_partition_ids(t.cols[key], n_parts)
 
 
 def group_ids(key_arrs: Sequence[torch.Tensor],

@@ -33,6 +33,8 @@ class Query:
     qid: str
     plans: Dict[str, PushPlan]
     compute: Callable[[Dict[str, ColumnTable]], ColumnTable]
+    # table -> redistribution key of the downstream join (the §4.2 shuffle)
+    shuffle_keys: Dict[str, str] = dataclasses.field(default_factory=dict)
 
 
 def _scalar_table(name: str, value: torch.Tensor) -> ColumnTable:
@@ -79,7 +81,8 @@ def q3() -> Query:
                             {"revenue": ("sum", "revenue")})
         return ops.top_k(g, "revenue", 10)
 
-    return Query("Q3", {"customer": cu, "orders": od, "lineitem": li}, compute)
+    return Query("Q3", {"customer": cu, "orders": od, "lineitem": li}, compute,
+                 shuffle_keys={"lineitem": "l_orderkey", "orders": "o_orderkey"})
 
 
 def q6() -> Query:
@@ -121,7 +124,8 @@ def q12() -> Query:
                                                 "low_cnt": ("sum", "low")})
         return ops.sort_table(g, ["l_shipmode"])
 
-    return Query("Q12", {"lineitem": li, "orders": od}, compute)
+    return Query("Q12", {"lineitem": li, "orders": od}, compute,
+                 shuffle_keys={"lineitem": "l_orderkey", "orders": "o_orderkey"})
 
 
 def q19() -> Query:
@@ -148,7 +152,8 @@ def q19() -> Query:
                 & (c["l_quantity"] < 31) & (c["p_size"] <= 15)))
         return _scalar_table("revenue", c["revenue"][m].sum())
 
-    return Query("Q19", {"lineitem": li, "part": pa}, compute)
+    return Query("Q19", {"lineitem": li, "part": pa}, compute,
+                 shuffle_keys={"lineitem": "l_partkey", "part": "p_partkey"})
 
 
 _BUILDERS = {f.__name__.upper(): f for f in (q1, q3, q6, q12, q19)}

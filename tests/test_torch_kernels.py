@@ -3,8 +3,11 @@
 ``repro_torch.kernels.ops`` on CPU tensors runs each kernel's plain torch
 version; ``repro.kernels.ops`` runs the Pallas kernels in interpret mode
 with ``block=1024``, as ``tests/test_kernels.py`` does. Inputs are seeded
-numpy arrays handed to both. Words and counts must match bitwise; f32 sums
-are held to the JAX tests' own tolerance, ``rtol=1e-4, atol=1e-2``.
+numpy arrays handed to both. Words, pids, histograms, masked columns and
+counts must match bitwise; f32 sums are held to the JAX tests' own
+tolerance, ``rtol=1e-4, atol=1e-2``. Shuffle keys are int32 with negative
+values, whose uint32 images pass 2**31; predicate operands are f32-exact,
+since the JAX wrapper casts f64 columns to f32.
 
 The second half holds the postfix predicate program (what the CUDA kernels
 interpret, ``repro_torch.kernels.program``) against ``compile_expr``, the
@@ -19,6 +22,7 @@ import torch
 import repro.core.engine  # noqa: F401  (before repro.queryproc.queries)
 from repro.kernels import ops as jops
 from repro.queryproc import expressions as rex
+from repro.queryproc import operators as rops
 from repro.queryproc import queries as rqueries
 from repro.queryproc import tpch as rtpch
 from repro_torch.kernels import ops as kops
@@ -30,6 +34,7 @@ from repro_torch.queryproc import queries as tqueries
 ROWS = (1, 31, 32, 33, 1024 + 5, 3 * 1024)
 BLOCK = 1024
 GROUPS = 37
+TARGETS = (1, 4, 7)
 
 
 def _inputs(R, seed=0):
@@ -98,6 +103,60 @@ def test_grouped_agg_matches_jax(R):
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
     np.testing.assert_allclose(sums.numpy(), np.asarray(js),
                                rtol=1e-4, atol=1e-2)
+
+
+def _keys(R):
+    rng = np.random.default_rng(R + 1)
+    keys = rng.integers(-2 ** 31, 2 ** 31 - 1, R, dtype=np.int32)
+    keys[:4] = np.asarray([-1, -2, 0, -(2 ** 31)], np.int32)[:R]
+    return keys
+
+
+@pytest.mark.parametrize("dtype", (np.int32, np.float32))
+@pytest.mark.parametrize("R", ROWS)
+def test_bitmap_apply_matches_jax(R, dtype):
+    rng = np.random.default_rng(R)
+    words = rops.pack_bitmap(rng.random(R) < 0.4)
+    col = (rng.normal(size=R) * 1e3).astype(dtype)
+    col[:2] = np.asarray([-0.0, 7], dtype)[:R]
+    masked, count = kops.bitmap_apply(torch.from_numpy(words.view(np.int32)),
+                                      torch.from_numpy(col))
+    jm, jc = jops.bitmap_apply(jnp.asarray(words), jnp.asarray(col),
+                               block=BLOCK)
+    assert masked.numpy().dtype == dtype and count.dtype == torch.int32
+    np.testing.assert_array_equal(masked.numpy().view(np.uint32),
+                                  np.asarray(jm).view(np.uint32))
+    assert int(count) == int(jc)
+
+
+@pytest.mark.parametrize("P", TARGETS)
+@pytest.mark.parametrize("R", ROWS)
+def test_hash_partition_matches_jax(R, P):
+    keys = _keys(R)
+    pids, hist = kops.hash_partition(torch.from_numpy(keys), P)
+    jp, jh = jops.hash_partition(jnp.asarray(keys), P, block=BLOCK)
+    assert pids.dtype == torch.int32 and hist.dtype == torch.int32
+    np.testing.assert_array_equal(pids.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(pids.numpy(), rops.hash_partition_ids(keys, P))
+
+
+@pytest.mark.parametrize("with_predicate", (True, False))
+@pytest.mark.parametrize("P", TARGETS)
+@pytest.mark.parametrize("R", ROWS)
+def test_fused_scan_shuffle_matches_jax(R, P, with_predicate):
+    cols, keys = _inputs(R), _keys(R)
+    words, pids, hist = kops.fused_scan_shuffle(
+        _torch(cols), _expr(tex) if with_predicate else None,
+        torch.from_numpy(keys), P)
+    jw, jp, jh = jops.fused_scan_shuffle(
+        _jax(cols), jops.compile_predicate(_expr(rex)) if with_predicate
+        else None, jnp.asarray(keys), P, block=BLOCK)
+    assert words.dtype == pids.dtype == hist.dtype == torch.int32
+    np.testing.assert_array_equal(words.numpy().view(np.uint32),
+                                  np.asarray(jw))
+    np.testing.assert_array_equal(pids.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
 
 
 # ------------------------------------------------------ postfix program

@@ -81,8 +81,11 @@ def test_without_a_gpu_the_entry_points_raise(monkeypatch):
 
 
 def test_kernel_wrappers_do_not_fall_back_to_the_plain_version():
+    from repro_torch.kernels import bitmap_apply as ba
     from repro_torch.kernels import fused_scan_agg as fsa
+    from repro_torch.kernels import fused_scan_shuffle as fss
     from repro_torch.kernels import grouped_agg as ga
+    from repro_torch.kernels import hash_partition as hp
     from repro_torch.kernels import ops as kops
     from repro_torch.queryproc.expressions import Col
     meta = torch.device("meta")
@@ -94,12 +97,28 @@ def test_kernel_wrappers_do_not_fall_back_to_the_plain_version():
         fsa.fused_scan_agg(None, (), ids, vals, 4)
     with pytest.raises(ValueError):
         kops.predicate_bitmap({"a": ids}, Col("a") < 3)
+    words = torch.zeros(2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError):
+        ba.bitmap_apply(words, vals)
+    with pytest.raises(ValueError):
+        hp.hash_partition(ids, 4)
+    with pytest.raises(ValueError):
+        fss.fused_scan_shuffle(None, (), ids, 4)
+    with pytest.raises(ValueError):
+        kops.fused_scan_shuffle({"a": ids}, Col("a") < 3, ids, 4)
     # a CPU tensor of the wrong dtype or shape raises too
     with pytest.raises(TypeError):
         ga.grouped_agg(torch.zeros(4, dtype=torch.int64), None, 4)
     with pytest.raises(ValueError):
         ga.grouped_agg(torch.zeros(4, dtype=torch.int32),
                        torch.zeros(5, dtype=torch.float64), 4)
+    with pytest.raises(ValueError):  # words for 64 rows, column of 65
+        ba.bitmap_apply(torch.zeros(2, dtype=torch.int32),
+                        torch.zeros(65, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        hp.hash_partition(torch.zeros(4, dtype=torch.float32), 4)
+    with pytest.raises(ValueError):
+        hp.hash_partition(torch.zeros(4, dtype=torch.int32), 0)
 
 
 def _run_smoke(cwd: Path):
@@ -118,7 +137,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_chip_smoke_phases_run_on_the_cpu():
     """The script's checks at a small size through the plain versions: sf=10
     with 6000-row partitions has the card run's 100 lineitem partitions over
-    4 nodes, so the power-0.1 split check is exercised too."""
+    4 nodes, so the power-0.1 split check is exercised too, and the §4.2
+    phase cuts every partition's words out of unaligned batch words."""
     import importlib.util
     import time
     from repro_torch.queryproc import tpch
@@ -134,13 +154,19 @@ def test_chip_smoke_phases_run_on_the_cpu():
     cat = tpch.build_catalog(sf=10, num_nodes=4, rows_per_partition=6000,
                              device="cpu")
     records, extra = smoke.kernel_phase(cat, host_ms)
-    assert set(records) == {"predicate_bitmap", "fused_scan_agg",
-                            "grouped_agg"}
+    assert set(records) == set(smoke.REPLACES) == set(smoke.SOURCES) == {
+        "predicate_bitmap", "fused_scan_agg", "grouped_agg", "bitmap_apply",
+        "hash_partition", "fused_scan_shuffle"}
+    assert all(r["bound_by"] == "bytes" and r["bound_ms"] > 0
+               and r["max_abs_err"] == 0
+               for n, r in records.items() if n not in ("fused_scan_agg",
+                                                        "grouped_agg"))
     assert all(r["bound_by"] == "bytes" and r["bound_ms"] > 0
                for r in [*records.values(), *extra])
     # CPU tensors run the plain versions, which count no launch
-    assert smoke.engine_phase(cat, lambda: None) == {
-        "predicate_bitmap": 0, "fused_scan_agg": 0, "grouped_agg": 0}
+    zero = dict.fromkeys(records, 0)
+    assert smoke.engine_phase(cat, lambda: None) == zero
+    assert smoke.section42_phase(cat, lambda: None) == zero
 
 
 def test_chip_smoke_fails_without_a_gpu():
