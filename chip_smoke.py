@@ -14,6 +14,12 @@ GPU is present. Phases:
    version on the card, at the shapes the main path gives it (60M
    lineitem rows), and times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call, with CUDA events.
+   ``predicate_bitmap`` is also timed on one 600,000-row lineitem
+   partition (the shape of the Fig-4 launches). ``grouped_agg`` runs at
+   three shapes (Q3's residual, 60M random ids over the same groups, Q18's
+   group-by of lineitem by ``l_orderkey``) and prints the regime that
+   ``grouped_agg.plan`` picks for each (``profile_kernels.py`` times the
+   other regimes).
 3. Engine: builds the TPC-H catalog at ``SF`` = 1000 (TPC-H SF10's row
    counts: 60M lineitem rows in 100 partitions over 4 storage nodes)
    on the card and runs Q1, Q3, Q6, Q12 and Q19 through
@@ -65,7 +71,7 @@ REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"predicate_bitmap": _CSRC + "predicate_bitmap.cu",
            "fused_scan_agg": _CSRC + "fused_scan_agg.cu",
-           "grouped_agg": _CSRC + "fused_scan_agg.cu",
+           "grouped_agg": _CSRC + "grouped_agg.cu",
            "bitmap_apply": _CSRC + "bitmap_apply.cu",
            "hash_partition": _CSRC + "shuffle.cu",
            "fused_scan_shuffle": _CSRC + "shuffle.cu"}
@@ -122,7 +128,8 @@ def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 # ------------------------------------------------------------ kernel phase
 def kernel_phase(cat, timer):
     """Hold each kernel against its plain version at the main path's shapes;
-    returns ``{name: record}`` for the JSON line plus extra case lines."""
+    returns ``{name: record}`` for the JSON line plus extra records (other
+    shapes, each with its kernel's ``name``)."""
     from repro_torch.core.executor import compile_push_plan
     from repro_torch.kernels import bitmap_apply as ba
     from repro_torch.kernels import fused_scan_agg as fsa
@@ -162,6 +169,21 @@ def kernel_phase(cat, timer):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
         shape=f"Q19 lineitem predicate, R={R}, {prog.n_ops} ops")
+    # the same program on one partition, as the Fig-4 compute side runs it
+    pcols = [cat.partitions_of("lineitem")[0].data.cols[c]
+             for c in prog.columns]
+    pwords = pb.predicate_bitmap(prog, pcols)
+    check(torch.equal(pwords, ref.predicate_bitmap(prog, pcols)),
+          "predicate_bitmap Q19 on one partition: words differ")
+    b_ms, b_by = bound(nbytes(*pcols) + nbytes(pwords),
+                       pcols[0].shape[0] * prog.n_ops)
+    lines.append(dict(
+        name="predicate_bitmap", max_abs_err=0.0,
+        ms=timer(lambda: pb.predicate_bitmap(prog, pcols)),
+        plain_ms=timer(lambda: ref.predicate_bitmap(prog, pcols)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"Q19 lineitem predicate, one partition, "
+              f"R={pcols[0].shape[0]}, {prog.n_ops} ops"))
 
     # fused_scan_agg: Q1's partial agg (partition, returnflag, linestatus)
     # and Q6's keyless one (partition), one launch per summed column
@@ -195,7 +217,10 @@ def kernel_phase(cat, timer):
         shape=f"Q1 partial agg, R={R}, G={G}, kept={kept}")
 
     # grouped_agg: Q3's residual group-by (orderkey, orderdate,
-    # shippriority) over the joined pushdown results, then lineitem scale
+    # shippriority) over the joined pushdown results (the path's shape), then
+    # two at lineitem scale: 60M random ids over the same G (the yardstick)
+    # and Q18's group-by, all of lineitem by l_orderkey (about 14.7M groups,
+    # compressed by torch.unique), each in the regime grouped_agg.plan picks
     q3 = queries.build_query("Q3")
     merged = {}
     for table, plan in q3.plans.items():
@@ -210,26 +235,33 @@ def kernel_phase(cat, timer):
     gen = torch.Generator(device=ids.device).manual_seed(0)
     big_ids = torch.randint(0, G, (R,), generator=gen, device=ids.device,
                             dtype=torch.int32)
-    for case, cids, cvals in (("lineitem scale", big_ids, li["l_extendedprice"]),
-                              ("Q3 residual", ids, j.cols["revenue"])):
-        sums, counts = ga.grouped_agg(cids, cvals, G)
-        psums, pcounts = ref.grouped_agg(cids, cvals, G)
+    q18_ids, q18_G, _ = operators.group_ids([li["l_orderkey"]])
+    # the H100's 132 SMs stand in for the card's count in the CPU rehearsal
+    sms = (torch.cuda.get_device_properties(ids.device).multi_processor_count
+           if ids.is_cuda else 132)
+    for case, cids, cvals, cG in (
+            ("lineitem scale", big_ids, li["l_extendedprice"], G),
+            ("Q18 group-by l_orderkey", q18_ids, li["l_extendedprice"], q18_G),
+            ("Q3 residual", ids, j.cols["revenue"], G)):
+        sums, counts = ga.grouped_agg(cids, cvals, cG)
+        psums, pcounts = ref.grouped_agg(cids, cvals, cG)
         check(torch.equal(counts, pcounts), f"grouped_agg {case}: counts differ")
         check(torch.allclose(sums, psums, rtol=SUM_RTOL, atol=0.0),
               f"grouped_agg {case}: sums differ beyond rtol {SUM_RTOL}")
         rec = dict(
+            name="grouped_agg", regime=ga.plan(cids.shape[0], cG, sms).regime,
             max_abs_err=float((sums - psums).abs().max()),
-            ms=timer(lambda: ga.grouped_agg(cids, cvals, G)),
-            plain_ms=timer(lambda: ref.grouped_agg(cids, cvals, G)),
+            ms=timer(lambda: ga.grouped_agg(cids, cvals, cG)),
+            plain_ms=timer(lambda: ref.grouped_agg(cids, cvals, cG)),
             library_ms=timer(lambda: torch.bincount(cids, weights=cvals,
-                                                    minlength=G)),
-            shape=f"{case}, R={cids.shape[0]}, G={G}")
+                                                    minlength=cG)),
+            shape=f"{case}, R={cids.shape[0]}, G={cG}")
         rec["bound_ms"], rec["bound_by"] = bound(
-            nbytes(cids, cvals) + G * 16, cids.shape[0])
-        if case == "lineitem scale":
+            nbytes(cids, cvals) + cG * 16, cids.shape[0])
+        if case != "Q3 residual":
             lines.append(rec)
     records["grouped_agg"] = rec
-    del big_ids, j, merged
+    del big_ids, q18_ids, j, merged
 
     # bitmap_apply: Q19's lineitem words applied to l_orderkey (int32) and
     # l_extendedprice (f64), the Fig-3 cached columns; timed on the f64 one
@@ -609,6 +641,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     from repro_torch.queryproc import tpch
@@ -635,17 +668,17 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, built in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     records, extra = kernel_phase(cat, cuda_ms)
-    for name, rec in records.items():
+    print(f"kernel phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
+    for name, rec in [*records.items(), *((r["name"], r) for r in extra)]:
+        regime = f" regime={rec['regime']}" if "regime" in rec else ""
         print(f"kernel: {name} [{rec['shape']}] ms={rec['ms']:.4f} "
               f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
               f"({rec['bound_by']}) library_ms={rec['library_ms']} "
-              f"max_abs_err={rec['max_abs_err']:.3g}")
-    for rec in extra:
-        print(f"kernel: grouped_agg [{rec['shape']}] ms={rec['ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']}) library_ms={rec['library_ms']:.4f} "
-              f"max_abs_err={rec['max_abs_err']:.3g}")
+              f"max_abs_err={rec['max_abs_err']:.3g}{regime}")
 
     engine = engine_phase(cat, torch.cuda.synchronize)
     torch.cuda.reset_peak_memory_stats()
@@ -659,6 +692,7 @@ def main() -> int:
         f"section 4.2 {sec42[n]})" for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n],
          "replaces": REPLACES[n], "launches": launches[n],

@@ -20,7 +20,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("predicate_bitmap", "fused_scan_agg", "bitmap_apply", "shuffle")
+SOURCES = ("predicate_bitmap", "fused_scan_agg", "grouped_agg", "bitmap_apply",
+           "shuffle")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -28,11 +29,16 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PROG = [_P, _I, _P, _P, _I, _P, _P, _I]  # ops .. n_cols (program.cuh)
 SIGNATURES = {
     "predicate_bitmap": {
-        "predicate_bitmap_launch": _PROG + [_LL, _P, _I, _P]},
+        "predicate_bitmap_launch": _PROG + [_LL, _I, _P, _P]},
     "fused_scan_agg": {
         "fused_scan_agg_launch": _PROG + [_P, _P, _I, _LL, _I, _P, _P, _I,
-                                          _P],
-        "grouped_agg_launch": [_P, _P, _I, _LL, _I, _P, _P, _I, _P]},
+                                          _P]},
+    "grouped_agg": {  # ids, values, vdt, R, G, then each regime's own
+        "grouped_agg_smem_launch": [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
+                                    _P, _P, _P],
+        "grouped_agg_l2_launch": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
+        "grouped_agg_range_launch": [_P, _P, _I, _LL, _I, _I, _I, _I, _LL,
+                                     _I, _I, _I, _P, _P, _P, _P, _P, _P]},
     "bitmap_apply": {
         "bitmap_apply_launch": [_P, _P, _I, _LL, _P, _P, _I, _P]},
     "shuffle": {

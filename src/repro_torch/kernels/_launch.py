@@ -57,10 +57,17 @@ def program_args(prog: Optional[Program], cols: Sequence[torch.Tensor]
 BLOCKS_PER_SM = 4
 
 
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def launch_config(device: torch.device) -> Tuple[int, int]:
     """(grid-size cap, current stream handle) for a launch on ``device``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * BLOCKS_PER_SM, torch.cuda.current_stream(device).cuda_stream
+    return sm_count(device) * BLOCKS_PER_SM, stream_of(device)
 
 
 def raise_on(err: int, kernel: str) -> None:

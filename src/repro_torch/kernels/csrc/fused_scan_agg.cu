@@ -1,11 +1,10 @@
-// fused_scan_agg / grouped_agg: predicate -> keep -> per-group sum and count.
+// fused_scan_agg: predicate -> keep -> per-group sum and count.
 //
-// Replaces the TPU kernels repro/kernels/fused_scan_agg.py
-// (fused_scan_agg -> pl.pallas_call) and repro/kernels/grouped_agg.py
-// (grouped_agg -> pl.pallas_call), which contracted a one-hot group matrix
-// on the MXU. Bound: bytes — the predicate columns are read once, ids (4 B)
-// and values (4 or 8 B) of the kept rows, and G sums and counts written,
-// against 3.35 TB/s.
+// Replaces the TPU kernel repro/kernels/fused_scan_agg.py
+// (fused_scan_agg -> pl.pallas_call), which contracted a one-hot group
+// matrix on the MXU. Bound: bytes — the predicate columns are read once,
+// ids (4 B) and values (4 or 8 B) of the kept rows, and G sums and counts
+// written, against 3.35 TB/s.
 //
 // Design: each warp takes tiles of 32 * TILE_K consecutive rows (lane l
 // holds rows base + 32 * k + l, as in program.cuh::eval_tile), evaluates
@@ -23,7 +22,8 @@
 // are exact. Atomic order varies run to run, so sums are reproducible only
 // to a tolerance. Rows whose id lies outside [0, G) are dropped (the TPU
 // wrapper's poison group G), so a bad id can never write out of bounds.
-// grouped_agg is the same kernel with an empty program.
+// (grouped_agg, which ran this body with an empty program, has its own
+// kernels in grouped_agg.cu.)
 #include "program.cuh"
 
 #define THREADS 256
@@ -164,16 +164,6 @@ extern "C" int fused_scan_agg_launch(
   const int err = fill_program(&P, ops, n_ops, fconst, iconst, n_consts,
                                col_ptrs, dtypes, n_cols);
   if (err) return err;
-  return launch_agg(P, ids, values, vdt, R, G, sums, counts, max_blocks,
-                    stream);
-}
-
-extern "C" int grouped_agg_launch(const void* ids, const void* values,
-                                  int vdt, long long R, int G, void* sums,
-                                  void* counts, int max_blocks,
-                                  void* stream) {
-  PredProgram P;
-  memset(&P, 0, sizeof(P));  // n_ops = 0: every row passes
   return launch_agg(P, ids, values, vdt, R, G, sums, counts, max_blocks,
                     stream);
 }

@@ -7,9 +7,14 @@ into a postfix program (``kernels.program``) that the CUDA kernel
 (``csrc/predicate_bitmap.cu``) interprets per row. Comparisons run in the
 column's own type under numpy's rules, not in the TPU wrapper's f32.
 
-Bound on the card: bytes — the predicate columns read once plus R/8 bytes
-of words written, at 3.35 TB/s. Design: each warp takes tiles of 32x8 rows
-and decodes each op once per tile; ``__ballot_sync`` over 32 rows forms
+Bound on the card: bytes — each distinct predicate column read once plus
+R/8 bytes of words written, at 3.35 TB/s. Design: a persistent grid of up
+to three blocks per SM stages tiles of every program column through a ring
+of shared-memory stages, filled by one producer warp with 1-D bulk copies
+(TMA; the unaligned head and tail rows of a view by ordinary loads) while
+eight consumer warps interpret the program over the ready stage. So every
+column is read from device memory once however many leaves read it, and
+the loads overlap the interpretation. ``__ballot_sync`` over 32 rows forms
 each little-endian word directly.
 """
 from __future__ import annotations
@@ -37,10 +42,11 @@ def predicate_bitmap(prog: Program, cols: Sequence[torch.Tensor]
     if R == 0:
         return words
     args, _keep = _launch.program_args(prog, cols)
-    max_blocks, stream = _launch.launch_config(dev)
     lib = _build.library("predicate_bitmap")
     _launch.raise_on(lib.predicate_bitmap_launch(
-        *args, R, words.data_ptr(), max_blocks, stream), "predicate_bitmap")
+        *args, R, _launch.sm_count(dev), words.data_ptr(),
+        _launch.stream_of(dev)),
+        "predicate_bitmap")
     predicate_bitmap.launches += 1
     return words
 

@@ -82,6 +82,95 @@ def test_predicate_bitmap_matches_plain(cuda, R):
         assert torch.equal(words, ref.predicate_bitmap(prog, pcols)), expr
 
 
+def _view_at(arr, offset, device):
+    """A contiguous device view of ``arr`` that starts ``offset`` rows into
+    its allocation (not 16-byte aligned for offsets 1 and 3)."""
+    pad = np.zeros(offset, arr.dtype)
+    base = torch.from_numpy(np.concatenate([pad, arr, pad[:1]])).to(device)
+    return base[offset:offset + len(arr)]
+
+
+def _staging_predicates():
+    C = Col
+    one = C("a") < 25
+    longest = ((C("a").isin((1, 2, 3)) & C("d").between(0.01, 0.05)
+                & (C("x") <= 0.5))
+               | (C("a").isin((10, 11)) & C("d").between(0.02, 0.09)
+                  & (C("b") >= 0))
+               | ((C("d") < C("e")) & (C("x") > 0.2) & (C("a") < 40)))
+    return [one, longest, C("d") < C("e"), C("b").isin((-3, 0, 4))]
+
+
+# below one tile, one tile and its edges, and more tiles than every
+# block's ring of stages holds (the grid is at most two blocks an SM)
+STAGED_ROWS = (1, 100, 2047, 2048, 2049, 3_000_001)
+
+
+@pytest.mark.parametrize("offset", (0, 1, 3))
+@pytest.mark.parametrize("R", STAGED_ROWS)
+def test_predicate_bitmap_staged_tiles_match_plain(cuda, R, offset):
+    """Views that start off a 16-byte boundary (each column at its own
+    offset, int32, int64, f32 and f64), programs of 1 and of 21 ops, a
+    column-column leaf and an IN leaf."""
+    host = {k: v.cpu().numpy() for k, v in _columns(R, R + offset, "cpu").items()}
+    cols = {k: _view_at(v, (offset + i) % 4 if offset else 0, cuda)
+            for i, (k, v) in enumerate(host.items())}
+    if offset:
+        assert any(c.data_ptr() % 16 for c in cols.values())
+    progs = [program_for(e, cols) for e in _staging_predicates()]
+    assert progs[0].n_ops == 1 and progs[1].n_ops >= 15
+    for prog in progs:
+        pcols = [cols[c] for c in prog.columns]
+        words = pb.predicate_bitmap(prog, pcols)
+        assert torch.equal(words, ref.predicate_bitmap(prog, pcols))
+
+
+# every regime boundary of grouped_agg.plan, either side (one block's
+# shared memory, a range bucket, the smem regime's cap), and 2M groups
+REGIME_GROUPS = (ga.SMEM_GROUPS, ga.SMEM_GROUPS + 1, 1 << ga.WIN_SHIFT,
+                 (1 << ga.WIN_SHIFT) + 1, ga.SMEM_MAX_GROUPS,
+                 ga.SMEM_MAX_GROUPS + 1, 2_000_000)
+
+
+@pytest.mark.parametrize("G", REGIME_GROUPS)
+@pytest.mark.parametrize("R", (1, 1029, 300_000, 3_000_001))
+def test_grouped_agg_regimes_match_plain(cuda, R, G):
+    """Every regime that holds G (smem with one row chunk and several; range
+    buckets owned by one block and split over several), out-of-range ids
+    dropped, f64, f32 and no values."""
+    rng = np.random.default_rng(R + G)
+    ids = rng.integers(0, G, R, np.int32)
+    ids[::97] = -1
+    ids[5::101] = G + 3
+    ids = torch.from_numpy(ids).to(cuda)
+    vals = torch.from_numpy(rng.uniform(-1e3, 1e5, R)).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for regime in ga.REGIMES:
+        try:
+            p = ga.plan(R, G, sms, regime)
+        except ValueError:
+            continue
+        for values in (vals, vals.to(torch.float32), None):
+            s, c = ga.run_plan(p, ids, values, G)
+            ps, pcnt = ref.grouped_agg(ids, values, G)
+            assert torch.equal(c, pcnt), regime
+            torch.testing.assert_close(s, ps, rtol=SUM_RTOL, atol=0.0)
+
+
+def test_grouped_agg_range_windows_match_plain(cuda):
+    """Past MAX_BUCKETS buckets of one window each, buckets are wider than
+    a block's partials and are aggregated window by window."""
+    G, R = (1 << 28) + 5, 100_000
+    assert ga.plan(R, G, 132).shift > ga.WIN_SHIFT
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, G, R, np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=R)).to(cuda)
+    s, c = ga.grouped_agg(ids, vals, G)
+    ps, pcnt = ref.grouped_agg(ids, vals, G)
+    assert torch.equal(c, pcnt)
+    torch.testing.assert_close(s, ps, rtol=SUM_RTOL, atol=0.0)
+
+
 @pytest.mark.parametrize("G", (1, 600, 3072, 3073, 120_000))
 @pytest.mark.parametrize("R", ROWS)
 def test_fused_scan_agg_matches_plain(cuda, R, G):

@@ -14,6 +14,8 @@ interpret, ``repro_torch.kernels.program``) against ``compile_expr``, the
 port's and the numpy engine's, on every predicate of the ported queries and
 on constants one ulp either side of stored values.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from repro.queryproc import expressions as rex
 from repro.queryproc import operators as rops
 from repro.queryproc import queries as rqueries
 from repro.queryproc import tpch as rtpch
+from repro_torch.kernels import grouped_agg as ga
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.kernels.program import MAX_OPS, compile_program, program_for
@@ -236,3 +239,150 @@ def test_program_rejects_what_the_kernel_cannot_hold():
         e = e | (C("a") < i)
     with pytest.raises(ValueError):
         compile_program(e, {"a": torch.int32})
+
+
+# ---- grouped_agg's regime choice (the CUDA launches it plans run only on
+# the card; here the plan's arithmetic is held, and each regime's split of
+# rows and groups is replayed in numpy against np.bincount)
+Q3_RESIDUAL = (316_000, 119_009)   # rows, groups at sf=1000 (the path)
+SMS = 132                          # the H100's SMs
+
+
+def _replay(p, ids, vals, G):
+    """What the plan's launches compute, block by block, in numpy: rows go
+    to blocks and groups to partials exactly as csrc/grouped_agg.cu cuts
+    them; each partial must fit the shared memory the plan gives it."""
+    R = len(ids)
+    sums, counts = np.zeros(G), np.zeros(G, np.int64)
+    valid = (ids >= 0) & (ids < G)
+    if p.regime == "l2":  # every row adds into the outputs themselves
+        return (np.bincount(ids[valid], weights=vals[valid], minlength=G),
+                np.bincount(ids[valid], minlength=G))
+    if p.regime == "smem":
+        assert p.per * ga.PARTIAL_BYTES <= ga.SMEM_BLOCK
+        assert p.ranges * p.per >= G > (p.ranges - 1) * p.per
+        # warp tiles of 32 x 8 rows (32 x 16 without combining rounds),
+        # grid-strided over the chunk's warps
+        warps, tile = p.threads // 32, 32 * (8 if p.combine else 16)
+        chunk_of = (np.arange(R) // tile) % (p.blocks * warps) // warps
+        for c in range(p.blocks):
+            for q in range(p.ranges):
+                g0 = q * p.per
+                m = valid & (chunk_of == c) & (ids >= g0) & (ids < g0 + p.per)
+                counts += np.bincount(ids[m], minlength=G)
+                sums += np.bincount(ids[m], weights=vals[m], minlength=G)
+        return sums, counts
+    width, nb = 1 << p.shift, p.buckets
+    assert nb <= ga.MAX_BUCKETS and (nb - 1) * width < G <= nb * width
+    assert p.blocks * p.chunk >= R > (p.blocks - 1) * p.chunk
+    assert p.win * ga.PARTIAL_BYTES <= ga.SMEM_BLOCK and p.win <= width
+    bucket = np.where(valid, ids, 0) >> p.shift
+    hist = np.zeros((nb, p.blocks), np.int64)        # range_hist
+    for b in range(p.blocks):
+        rows = slice(b * p.chunk, (b + 1) * p.chunk)
+        hist[:, b] = np.bincount(bucket[rows][valid[rows]], minlength=nb)
+    tot = hist.sum(axis=1)                             # range_scan
+    start = np.concatenate([[0], np.cumsum(hist.reshape(-1))])[:-1]
+    cur = start.reshape(nb, p.blocks)
+    lid, val = np.full(valid.sum(), -1), np.zeros(valid.sum())
+    for r in np.nonzero(valid)[0]:                     # range_scatter
+        k, b = bucket[r], r // p.chunk
+        lid[cur[k, b]], val[cur[k, b]] = ids[r] - (k << p.shift), vals[r]
+        cur[k, b] += 1
+    assert (lid >= 0).all()                            # every slot written
+    first = np.concatenate([[0], np.cumsum(tot)])
+    assert p.wpb * p.win >= min(width, G)              # windows cover a bucket
+    for k in range(nb):                                # range_agg
+        for s in range(p.split):
+            lo = first[k] + tot[k] * s // p.split
+            hi = first[k] + tot[k] * (s + 1) // p.split
+            for w in range(p.wpb):
+                wn = min(p.win, G - (k << p.shift) - w * p.win)
+                m = (lid[lo:hi] >= w * p.win) & (lid[lo:hi] < w * p.win + wn)
+                g = (k << p.shift) + lid[lo:hi][m]
+                counts += np.bincount(g, minlength=G)
+                sums += np.bincount(g, weights=val[lo:hi][m], minlength=G)
+    return sums, counts
+
+
+@pytest.mark.parametrize("G,want", [
+    (1, "smem"), (ga.SMEM_GROUPS, "smem"), (ga.SMEM_GROUPS + 1, "smem"),
+    (Q3_RESIDUAL[1], "smem"), (ga.SMEM_MAX_GROUPS, "smem"),
+    (ga.SMEM_MAX_GROUPS + 1, "range"), (2_000_000, "range"),
+    (14_700_000, "range"), (2 ** 31 - 1, "range")])
+def test_grouped_agg_plan_picks_the_smallest_regime_that_holds_g(G, want):
+    for R in (1, Q3_RESIDUAL[0], 60_000_000):
+        p = ga.plan(R, G, SMS)
+        few_rows = (G > ga.SMEM_GROUPS and R <= ga.L2_ROWS_PER_GROUP * G
+                    and G * 16 <= ga.L2_OUTPUT_BYTES)
+        assert p.regime == ("l2" if few_rows else want)
+        if p.regime == "l2":
+            assert p.zero_fill and p.blocks <= 8 * SMS
+            continue
+        if want == "smem":
+            assert p.zero_fill == (p.blocks > 1)
+            assert 1 <= p.blocks * p.ranges <= 4 * SMS
+            assert p.ranges <= ga.MAX_RANGES and p.ranges * p.per >= G
+            bps = 1024 // p.threads  # blocks an SM, 1024 threads in all
+            assert bps * (p.per * ga.PARTIAL_BYTES + ga.SMEM_RESERVED) \
+                <= ga.SMEM_PER_SM
+        else:
+            width = 1 << p.shift
+            assert (p.buckets - 1) * width < G <= p.buckets * width
+            assert p.buckets <= ga.MAX_BUCKETS
+            assert p.zero_fill == (p.split > 1)
+
+
+def test_grouped_agg_plan_shapes_of_the_main_path():
+    # the Q3 residual: 2.7 rows a group, 1.9 MB of outputs: into L2
+    assert ga.plan(*Q3_RESIDUAL, SMS).regime == "l2"
+    # 60M random ids over its groups: 7 ranges of 17,002 groups, the row
+    # chunks that fill the card once
+    p = ga.plan(60_000_000, Q3_RESIDUAL[1], SMS)
+    assert (p.regime, p.ranges, p.per, p.blocks, p.zero_fill) == (
+        "smem", 7, 17_002, SMS // 7, True)
+    # few rows forced into smem: one chunk, whose blocks write their ranges
+    # whole
+    p = ga.plan(5000, Q3_RESIDUAL[1], SMS, "smem")
+    assert (p.blocks, p.zero_fill) == (1, False)
+    # Q18's group-by: 449 buckets of 32,768 groups (the scatter's runs),
+    # 2 windows each, every window's block written directly (no zero-fill)
+    p = ga.plan(60_000_000, 14_700_000, SMS)
+    assert (p.regime, p.buckets, p.wpb, p.split, p.zero_fill) == (
+        "range", 449, 2, 1, False)
+    # at most 2 windows a bucket, until MAX_BUCKETS buckets need wider ones
+    p = ga.plan(1000, 2 ** 28 + 5, SMS)
+    assert (p.shift, p.wpb) == (ga.WIN_SHIFT + ga.MAX_WINDOW_BITS + 1, 4)
+    p = ga.plan(1000, 2 ** 31 - 1, SMS)
+    assert p.buckets <= ga.MAX_BUCKETS and p.wpb == 1 << (p.shift - 14)
+
+
+def test_grouped_agg_plan_rejects_what_a_regime_cannot_hold():
+    with pytest.raises(ValueError):
+        ga.plan(100, ga.SMEM_MAX_GROUPS + 1, SMS, "smem")
+    with pytest.raises(ValueError):
+        ga.plan(100, 10, SMS, "sorted")
+
+
+@pytest.mark.parametrize("regime,R,G,narrow", [
+    ("smem", 3000, 37, False), ("smem", 30_000, 1000, False),
+    ("smem", 30_000, 45_000, False), ("l2", 3000, 1000, False),
+    ("range", 3000, 1000, False),
+    ("range", 1, 3, False),
+    # buckets of 16 ids in windows of 8, each window by 3 blocks
+    ("range", 3000, 1000, True)])
+def test_grouped_agg_regimes_cover_every_row_and_group(regime, R, G, narrow):
+    rng = np.random.default_rng(R + G)
+    ids = rng.integers(-2, G + 2, R).astype(np.int32)  # some out of range
+    vals = rng.normal(size=R)
+    p = ga.plan(R, G, 4, regime)
+    if narrow:
+        p = dataclasses.replace(p, shift=4, buckets=-(-G // 16), split=3,
+                                win=8, wpb=2)
+    sums, counts = _replay(p, ids, vals, G)
+    keep = (ids >= 0) & (ids < G)
+    np.testing.assert_array_equal(counts,
+                                  np.bincount(ids[keep], minlength=G))
+    np.testing.assert_allclose(
+        sums, np.bincount(ids[keep], weights=vals[keep], minlength=G),
+        rtol=1e-9, atol=1e-12)
