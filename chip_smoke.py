@@ -15,7 +15,11 @@ GPU is present. Phases:
    lineitem rows), and times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call, with CUDA events.
    ``predicate_bitmap`` is also timed on one 600,000-row lineitem
-   partition (the shape of the Fig-4 launches). ``grouped_agg`` runs at
+   partition (the shape of the Fig-4 launches). ``fused_scan_agg`` runs
+   Q1's four sums in one launch, and Q1 with one sum and Q6 beside it.
+   ``bitmap_apply`` runs Q19's whole Fig-3 apply (100 partitions x 3
+   cached columns) in one launch, and one partition's columns and the
+   60M-row ``l_extendedprice`` beside it. ``grouped_agg`` runs at
    three shapes (Q3's residual, 60M random ids over the same groups, Q18's
    group-by of lineitem by ``l_orderkey``) and prints the regime that
    ``grouped_agg.plan`` picks for each (``profile_kernels.py`` times the
@@ -34,7 +38,8 @@ GPU is present. Phases:
    compute-side one, the shuffle plans of Q3, Q12 and Q19 with their
    position vectors, and engine runs with bitmap-recosted requests and
    with shuffle pushdown. Every result is held to the plain operators,
-   bitwise.
+   bitwise. The host-clock time of each ``apply_bitmap_to_cache`` call is
+   printed alone (until it returns, and until the card is done).
 5. Prints each kernel's launches in phases 3 and 4 (all must be above 0),
    the per-kernel JSON line and, last, the ``{"ok": true, ...}`` line.
 """
@@ -85,17 +90,22 @@ def check(cond: bool, msg: str) -> None:
 def cuda_ms(fn, launches: int = 10, batches: int = 3) -> float:
     """Median time of single calls after a warm-up call: ``batches`` batches
     of ``launches`` back-to-back calls, each call between its own pair of
-    CUDA events. A sleep kernel ahead of each batch lets the host queue the
-    whole batch first, so a kernel's time is its device time and not its
-    launch overhead; a function that synchronises inside pays its host time
-    as it would on the path."""
+    CUDA events. A sleep kernel ahead of each batch, twice as long as the
+    host took to issue the warm-up call ``launches`` times (at least 20M
+    cycles), lets the host queue the whole batch first, so a kernel's time
+    is its device time and not its launch overhead; a function that
+    synchronises inside pays its host time as it would on the path."""
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    # cycles at the H100's 1.98 GHz boost clock: a slower clock sleeps longer
+    cycles = max(20_000_000, int(2 * launches * host_s * 1.98e9))
     times = []
     for _ in range(batches):
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(launches + 1)]
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(cycles)
         events[0].record()
         for ev in events[1:]:
             fn()
@@ -147,7 +157,7 @@ def kernel_phase(cat, timer):
     need = sorted(set().union(*(columns_of(p.predicate)
                                 for p in li_plans.values()))
                   | {"l_returnflag", "l_linestatus", "l_extendedprice",
-                     "l_discount", "l_orderkey"})
+                     "l_discount", "l_tax", "l_orderkey"})
     li = cat.scan_table("lineitem", need).cols
     R = li["l_shipdate"].shape[0]
     records, lines = {}, []
@@ -186,35 +196,51 @@ def kernel_phase(cat, timer):
               f"R={pcols[0].shape[0]}, {prog.n_ops} ops"))
 
     # fused_scan_agg: Q1's partial agg (partition, returnflag, linestatus)
-    # and Q6's keyless one (partition), one launch per summed column
-    n_parts = len(cat.partitions_of("lineitem"))
+    # with its four sums in one launch (the record), then Q1 with one sum
+    # (the one-value launch of earlier versions) and Q6's keyless one
+    li_parts = [p.data for p in cat.partitions_of("lineitem")]
+    n_parts = len(li_parts)
     seg = torch.repeat_interleave(
         torch.arange(n_parts, device=li["l_shipdate"].device),
-        torch.as_tensor([len(p.data) for p in cat.partitions_of("lineitem")],
+        torch.as_tensor([len(p) for p in li_parts],
                         device=li["l_shipdate"].device))
-    q6_vals = li["l_extendedprice"] * li["l_discount"]
-    for q, keys, vals in (("Q6", [], q6_vals),
-                          ("Q1", ["l_returnflag", "l_linestatus"],
-                           li["l_extendedprice"])):
+    q1 = li_plans["Q1"]
+    q1_cols = dict(li)
+    for name, incols, fn in q1.derive:
+        q1_cols[name] = fn(*[li[c] for c in incols])
+    q1_vals = [q1_cols[c] for _o, f, c in q1.agg[1] if f == "sum"]
+    for case, q, keys, vals in (
+            ("Q1 partial agg, four sums", "Q1", q1.agg[0], q1_vals),
+            ("Q1 partial agg, one sum", "Q1", q1.agg[0],
+             [li["l_extendedprice"]]),
+            ("Q6 partial agg, one sum", "Q6", [],
+             [li["l_extendedprice"] * li["l_discount"]])):
         ids, G, _ = operators.group_ids([li[k] for k in keys], lead=seg,
                                         lead_size=n_parts)
         prog = program_for(li_plans[q].predicate, li)
         cols = [li[c] for c in prog.columns]
         sums, counts = fsa.fused_scan_agg(prog, cols, ids, vals, G)
         psums, pcounts = ref.fused_scan_agg(prog, cols, ids, vals, G)
-        check(torch.equal(counts, pcounts), f"fused_scan_agg {q}: counts differ")
+        check(torch.equal(counts, pcounts), f"fused_scan_agg {case}: counts differ")
         check(torch.allclose(sums, psums, rtol=SUM_RTOL, atol=0.0),
-              f"fused_scan_agg {q}: sums differ beyond rtol {SUM_RTOL}")
-        err = float((sums - psums).abs().max())
-    kept = int(pcounts.sum())
-    ms = timer(lambda: fsa.fused_scan_agg(prog, cols, ids, vals, G))
-    plain_ms = timer(lambda: ref.fused_scan_agg(prog, cols, ids, vals, G))
-    b_ms, b_by = bound(nbytes(*cols) + kept * (4 + vals.element_size())
-                       + G * 16, R * prog.n_ops + kept)
-    records["fused_scan_agg"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
-        shape=f"Q1 partial agg, R={R}, G={G}, kept={kept}")
+              f"fused_scan_agg {case}: sums differ beyond rtol {SUM_RTOL}")
+        kept, V = int(pcounts.sum()), len(vals)
+        # the predicate columns once, ids and values of the kept rows, and
+        # G x (8V + 8) bytes of sums and counts (csrc/fused_scan_agg.cu)
+        b_ms, b_by = bound(nbytes(*cols) + kept * (4 + sum(
+            v.element_size() for v in vals)) + G * (8 * V + 8),
+            R * prog.n_ops + kept * (V + 1))
+        rec = dict(
+            name="fused_scan_agg", max_abs_err=float((sums - psums).abs().max()),
+            ms=timer(lambda: fsa.fused_scan_agg(prog, cols, ids, vals, G)),
+            plain_ms=timer(lambda: ref.fused_scan_agg(prog, cols, ids, vals, G)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"{case}, R={R}, G={G}, V={V}, kept={kept}")
+        if "fused_scan_agg" in records:
+            lines.append(rec)
+        else:
+            records["fused_scan_agg"] = rec
+    del q1_cols, q1_vals, vals, sums, psums
 
     # grouped_agg: Q3's residual group-by (orderkey, orderdate,
     # shippriority) over the joined pushdown results (the path's shape), then
@@ -263,27 +289,64 @@ def kernel_phase(cat, timer):
     records["grouped_agg"] = rec
     del big_ids, q18_ids, j, merged
 
-    # bitmap_apply: Q19's lineitem words applied to l_orderkey (int32) and
-    # l_extendedprice (f64), the Fig-3 cached columns; timed on the f64 one
-    prog = program_for(li_plans["Q19"].predicate, li)
-    words = ref.predicate_bitmap(prog, [li[c] for c in prog.columns])
-    err = 0.0
-    for c in ("l_orderkey", "l_extendedprice"):
-        col = li[c]
-        masked, count = ba.bitmap_apply(words, col)
-        pmasked, pcount = ref.bitmap_apply(words, col)
-        check(torch.equal(bits(masked), bits(pmasked)) and
-              int(count) == int(pcount), f"bitmap_apply {c}: differs")
-        err = max(err, max_diff(masked, pmasked), abs(int(count) - int(pcount)))
+    # bitmap_apply: Q19's Fig-3 compute side in one launch (the record):
+    # each partition's words applied to its three cached columns
+    # (l_discount and l_extendedprice f64, l_partkey int32), as
+    # core.bitmap.apply_bitmap_to_cache launches it; then one partition's
+    # f64 and int32 columns, and all 60M rows of l_extendedprice
+    plan = li_plans["Q19"]
+    cached = fig3_columns(plan)[1]
+    part_cols = [p.cols for p in li_parts]
+    prog = program_for(plan.predicate, part_cols[0])
+    pwords = [ref.predicate_bitmap(prog, [pc[c] for c in prog.columns])
+              for pc in part_cols]
+    seg_w = [w for w in pwords for _ in cached]
+    seg_c = [pc[c] for pc in part_cols for c in cached]
+    seg_p = [p for p in range(n_parts) for _ in cached]
+    outs, counts = ba.bitmap_apply_segments(seg_w, seg_c, seg_p)
+    pouts, pcounts = ref.bitmap_apply_segments(seg_w, seg_c, seg_p)
+    check(torch.equal(counts, pcounts) and all(
+        torch.equal(bits(a), bits(b)) for a, b in zip(outs, pouts)),
+        "bitmap_apply Q19 Fig-3 apply: masked columns or counts differ")
+    err = max(max(max_diff(a, b) for a, b in zip(outs, pouts)),
+              max_diff(counts, pcounts))
+    kept = pcounts.tolist()
     # a dropped row's output is 0 whatever the column holds: the function
-    # reads the words, the kept rows' values, and writes every row
-    b_ms, b_by = bound(nbytes(words) + int(count) * col.element_size()
-                       + nbytes(col), R)
+    # reads each partition's words once, the kept rows' values, and writes
+    # every row
+    b_ms, b_by = bound(nbytes(*pwords) + sum(
+        kept[p] * c.element_size() for p, c in zip(seg_p, seg_c))
+        + nbytes(*seg_c), sum(c.shape[0] for c in seg_c))
     records["bitmap_apply"] = dict(
-        max_abs_err=err, ms=timer(lambda: ba.bitmap_apply(words, col)),
-        plain_ms=timer(lambda: ref.bitmap_apply(words, col)), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
-        shape=f"Q19 words on l_extendedprice f64, R={R}, kept={int(count)}")
+        max_abs_err=err,
+        ms=timer(lambda: ba.bitmap_apply_segments(seg_w, seg_c, seg_p)),
+        plain_ms=timer(lambda: ref.bitmap_apply_segments(seg_w, seg_c, seg_p)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"Q19 Fig-3 apply, {n_parts} partitions x {cached}, "
+              f"{len(seg_c)} segments in one launch, kept={sum(kept)}")
+    del outs, pouts
+    prog = program_for(plan.predicate, li)
+    words = ref.predicate_bitmap(prog, [li[c] for c in prog.columns])
+    for case, w, col in (
+            ("one partition, l_extendedprice f64", pwords[0],
+             part_cols[0]["l_extendedprice"]),
+            ("one partition, l_partkey int32", pwords[0],
+             part_cols[0]["l_partkey"]),
+            (f"all of l_extendedprice f64, R={R}", words,
+             li["l_extendedprice"])):
+        masked, count = ba.bitmap_apply(w, col)
+        pmasked, pcount = ref.bitmap_apply(w, col)
+        check(torch.equal(bits(masked), bits(pmasked)) and
+              int(count) == int(pcount), f"bitmap_apply {case}: differs")
+        b_ms, b_by = bound(nbytes(w) + int(pcount) * col.element_size()
+                           + nbytes(col), col.shape[0])
+        lines.append(dict(
+            name="bitmap_apply", max_abs_err=max(
+                max_diff(masked, pmasked), abs(int(count) - int(pcount))),
+            ms=timer(lambda: ba.bitmap_apply(w, col)),
+            plain_ms=timer(lambda: ref.bitmap_apply(w, col)), bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            shape=f"Q19 words on {case}, kept={int(pcount)}"))
     del masked, pmasked
 
     # hash_partition: l_orderkey over every lineitem row into 4 targets
@@ -483,11 +546,19 @@ def section42_phase(cat, sync):
     from repro_torch.queryproc import queries
 
     launches = {n: 0 for n in kernels.WRAPPERS}
+    host_s = {}
 
     def drive(fn, *args, **kwargs):
-        kernels.reset_launches()
-        out = fn(*args, **kwargs)
+        """Run ``fn`` with the counts zeroed just before; ``host_s`` gets
+        the host-clock seconds until it returned and until the card was
+        done."""
         sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        host_s["call"] = time.perf_counter() - t0
+        sync()
+        host_s["done"] = time.perf_counter() - t0
         for n, c in kernels.launches().items():
             launches[n] += c
         return out
@@ -502,8 +573,9 @@ def section42_phase(cat, sync):
         uncached, cached = fig3_columns(plan)
         words, tabs = drive(bitmap.storage_side_bitmap_batched, parts, pred,
                             uncached)
-        masked, counts = drive(bitmap.apply_bitmap_to_cache,
-                               [p.select(cached) for p in parts], words)
+        to_mask = [p.select(cached) for p in parts]
+        masked, counts = drive(bitmap.apply_bitmap_to_cache, to_mask, words)
+        apply_s = dict(host_s)
         counts = counts.tolist()
         for p, part in enumerate(parts):
             mask = ex.compile_expr(pred)(part.cols)
@@ -522,8 +594,10 @@ def section42_phase(cat, sync):
         print(f"fig3: {qid} uncached={uncached} cached={cached} "
               f"kept={sum(counts)} of {sum(len(p) for p in parts)} rows in "
               f"{len(parts)} partitions, driven and checked in "
-              f"{time.perf_counter() - t0:.3f} s")
-        del words, tabs, masked
+              f"{time.perf_counter() - t0:.3f} s; apply_bitmap_to_cache "
+              f"alone: host_call_s={apply_s['call']:.6f} "
+              f"host_to_done_s={apply_s['done']:.6f}")
+        del words, tabs, masked, to_mask
 
         t0 = time.perf_counter()
         pred_cols = ex.columns_of(pred)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the alternatives of the redesigned kernels on one GPU.
 
-    python3 profile_kernels.py {grouped_agg,predicate_bitmap} [--seed 0]
+    python3 profile_kernels.py {grouped_agg,predicate_bitmap,fused_scan_agg,
+                                bitmap_apply} [--seed 0]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 ``repro_torch`` comes from ``PYTHONPATH`` when it is found there, else from
@@ -22,13 +23,27 @@ Prints the card's name and power limit.
   partition (the Fig-4 launches' shape), the same view from its row 1 (not
   16-byte aligned) and 100 copies of the partition (60M rows), each beside
   its bytes bound.
+- ``fused_scan_agg``: on chip_smoke's catalog (sf=1000, 60M lineitem rows
+  in 100 partitions), Q1's partial aggregate with its four sums (one call
+  for all four where the wrapper takes several value columns, else one call
+  per sum), with one sum and with counts only, and Q6's keyless one-value
+  aggregate, each beside its bytes bound.
+- ``bitmap_apply``: on the same catalog, Q19's words applied to one
+  600,000-row partition's f64 and int32 cached columns (also from row 1),
+  to all 60M rows of ``l_extendedprice`` (beside ``zero_`` of 480 MB, the
+  card's write rate), and as the whole Fig-3 compute
+  side (``core.bitmap.apply_bitmap_to_cache`` over 100 partitions and
+  Q19's three cached columns): its device time, its launches, and the host
+  time of the call alone and until the card is done.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -127,9 +142,152 @@ def time_predicate_bitmap(dev, seed):
               f"bound_ms={b_ms:.4f}")
 
 
+def lineitem_catalog(dev, seed):
+    """chip_smoke.py's catalog: sf=1000, 100 lineitem partitions."""
+    from chip_smoke import SF
+    from repro_torch.queryproc import tpch
+    return tpch.build_catalog(sf=SF, seed=seed, num_nodes=4,
+                              rows_per_partition=600_000, device=dev)
+
+
+def agg(fn, prog, cols, ids, vals, G):
+    """(sums (V, G), counts) of ``vals`` through ``fn`` (the wrapper or its
+    plain version): one call where it takes a sequence of value columns,
+    else one call per column (an earlier version's wrapper)."""
+    from repro_torch.kernels import fused_scan_agg as fsa
+    if hasattr(fsa, "MAX_VALUES"):
+        return fn(prog, cols, ids, vals, G)
+    out = [fn(prog, cols, ids, v, G) for v in vals] or [
+        fn(prog, cols, ids, None, G)]
+    return (torch.stack([s for s, _ in out]) if vals else None), out[-1][1]
+
+
+def time_fused_scan_agg(dev, seed):
+    from chip_smoke import SUM_RTOL, bound, check, cuda_ms, nbytes
+    from repro_torch.kernels import fused_scan_agg as fsa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+    from repro_torch.queryproc import operators, queries
+
+    cat = lineitem_catalog(dev, seed)
+    parts = cat.partitions_of("lineitem")
+    li = cat.scan_table("lineitem", [
+        "l_shipdate", "l_discount", "l_quantity", "l_extendedprice", "l_tax",
+        "l_returnflag", "l_linestatus"]).cols
+    seg = torch.repeat_interleave(
+        torch.arange(len(parts), device=dev),
+        torch.as_tensor([len(p.data) for p in parts], device=dev))
+    q1 = queries.build_query("Q1").plans["lineitem"]
+    for name, incols, fn in q1.derive:
+        li[name] = fn(*[li[c] for c in incols])
+    q1_vals = [li[c] for _o, f, c in q1.agg[1] if f == "sum"]
+    e, d = li["l_extendedprice"], li["l_discount"]
+    for name, q, keys, vals in (
+            ("Q1 four sums", "Q1", q1.agg[0], q1_vals),
+            ("Q1 one sum", "Q1", q1.agg[0], q1_vals[1:2]),
+            ("Q1 counts only", "Q1", q1.agg[0], []),
+            ("Q6 one sum", "Q6", [], [e * d])):
+        plan = queries.build_query(q).plans["lineitem"]
+        ids, G, _ = operators.group_ids([li[k] for k in keys], lead=seg,
+                                        lead_size=len(parts))
+        prog = program_for(plan.predicate, li)
+        cols = [li[c] for c in prog.columns]
+        sums, counts = agg(fsa.fused_scan_agg, prog, cols, ids, vals, G)
+        psums, pcounts = agg(ref.fused_scan_agg, prog, cols, ids, vals, G)
+        check(torch.equal(counts, pcounts) and (not vals or torch.allclose(
+            sums, psums, rtol=SUM_RTOL, atol=0.0)), name)
+        kept = int(pcounts.sum())
+        b_ms, _ = bound(nbytes(*cols) + kept * (4 + sum(v.element_size()
+                                                       for v in vals))
+                        + G * (8 * len(vals) + 8), 0)
+        fsa.fused_scan_agg.launches = 0
+        agg(fsa.fused_scan_agg, prog, cols, ids, vals, G)
+        print(f"fused_scan_agg {name} R={ids.shape[0]} G={G} V={len(vals)} "
+              f"kept={kept}: launches={fsa.fused_scan_agg.launches} "
+              f"ms={cuda_ms(lambda: agg(fsa.fused_scan_agg, prog, cols, ids, vals, G)):.4f} "
+              f"bound_ms={b_ms:.4f}")
+
+
+def host_s(fn, sync, runs: int = 10) -> float:
+    """Median host-clock seconds from a synchronised start until ``fn``
+    has returned and then ``sync`` has."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def time_bitmap_apply(dev, seed):
+    from chip_smoke import bits, bound, check, cuda_ms, fig3_columns, nbytes
+    from repro_torch.core import bitmap
+    from repro_torch.kernels import bitmap_apply as ba
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+    from repro_torch.queryproc import queries
+
+    cat = lineitem_catalog(dev, seed)
+    parts = [p.data for p in cat.partitions_of("lineitem")]
+    plan = queries.build_query("Q19").plans["lineitem"]
+    uncached, cached = fig3_columns(plan)
+    words, _ = bitmap.storage_side_bitmap_batched(parts, plan.predicate,
+                                                  uncached)
+    li = cat.scan_table("lineitem", ["l_extendedprice"] + [
+        c for c in sorted(set(program_for(plan.predicate, parts[0].cols)
+                              .columns))]).cols
+    prog = program_for(plan.predicate, li)
+    keep0 = ref.unpack_bitmap(words[0], len(parts[0]))
+    shapes = [(f"one partition {c} {parts[0].cols[c].dtype}", words[0],
+               parts[0].cols[c]) for c in ("l_extendedprice", "l_partkey")]
+    shapes += [(f"one partition {c} from row 1", ref.pack_bitmap(keep0[1:]),
+                parts[0].cols[c][1:]) for c in ("l_extendedprice",
+                                                "l_partkey")]
+    shapes.append(("60M rows l_extendedprice", ref.predicate_bitmap(
+        prog, [li[c] for c in prog.columns]), li["l_extendedprice"]))
+    for name, w, col in shapes:
+        masked, count = ba.bitmap_apply(w, col)
+        pmasked, pcount = ref.bitmap_apply(w, col)
+        check(torch.equal(bits(masked), bits(pmasked))
+              and int(count) == int(pcount), name)
+        b_ms, _ = bound(nbytes(w) + int(pcount) * col.element_size()
+                        + nbytes(col), 0)
+        print(f"bitmap_apply {name} R={col.shape[0]} kept={int(pcount)}: "
+              f"ms={cuda_ms(lambda: ba.bitmap_apply(w, col)):.4f} "
+              f"bound_ms={b_ms:.4f}")
+    # the card's write rate, the bound's main term: zero 480 MB
+    big = torch.empty(60_000_000, dtype=torch.float64, device=dev)
+    print(f"write yardstick: zero_ of {big.numel() * 8} bytes "
+          f"ms={cuda_ms(big.zero_):.4f} bound_ms={bound(big.numel() * 8, 0)[0]:.4f}")
+    del big
+    tabs = [p.select(cached) for p in parts]
+    masked, counts = bitmap.apply_bitmap_to_cache(tabs, words)
+    for p, (t, m, w) in enumerate(zip(tabs, masked, words)):
+        for c in cached:
+            pm, pc = ref.bitmap_apply(w, t.cols[c])
+            check(torch.equal(bits(m.cols[c]), bits(pm))
+                  and int(counts[p]) == int(pc), f"Fig-3 partition {p} {c}")
+    kept = int(counts.sum())
+    b_ms, _ = bound(nbytes(*words) + kept * sum(
+        tabs[0].cols[c].element_size() for c in cached)
+        + sum(nbytes(*t.cols.values()) for t in tabs), 0)
+    ba.bitmap_apply.launches = 0
+    bitmap.apply_bitmap_to_cache(tabs, words)
+    launches = ba.bitmap_apply.launches
+    call = lambda: bitmap.apply_bitmap_to_cache(tabs, words)  # noqa: E731
+    print(f"bitmap_apply Fig-3 Q19 apply, {len(tabs)} partitions x "
+          f"{cached}, kept={kept}: launches={launches} "
+          f"ms={cuda_ms(call):.4f} bound_ms={b_ms:.4f} "
+          f"host_call_ms={host_s(call, lambda: None) * 1e3:.4f} "
+          f"host_to_done_ms={host_s(call, torch.cuda.synchronize) * 1e3:.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap"))
+    ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap",
+                                       "fused_scan_agg", "bitmap_apply"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -144,6 +302,10 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.kernel == "predicate_bitmap":
         time_predicate_bitmap(dev, args.seed)
+    elif args.kernel == "fused_scan_agg":
+        time_fused_scan_agg(dev, args.seed)
+    elif args.kernel == "bitmap_apply":
+        time_bitmap_apply(dev, args.seed)
     else:
         time_grouped_agg(dev, torch.Generator(device=dev).manual_seed(
             args.seed), torch.cuda.get_device_properties(dev)

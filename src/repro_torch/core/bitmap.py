@@ -188,22 +188,30 @@ def apply_bitmap_to_cache(cached: Sequence[ColumnTable],
                           bitmaps: Sequence[torch.Tensor]
                           ) -> Tuple[List[ColumnTable], torch.Tensor]:
     """The Fig-3 compute side: each partition's shipped words applied to
-    the columns the compute layer caches, one ``bitmap_apply`` launch per
-    partition and column. Late materialisation: every column keeps its
-    shape with the dropped rows zeroed. Returns the masked tables and each
-    partition's selected rows (an int64 tensor)."""
-    tabs, counts = [], []
-    for t, words in zip(cached, bitmaps):
+    the columns the compute layer caches, one ``bitmap_apply`` launch for
+    all partitions and columns. Late materialisation: every column keeps
+    its shape with the dropped rows zeroed. Returns the masked tables and
+    each partition's selected rows (an int64 tensor)."""
+    if len(cached) != len(bitmaps):
+        raise ValueError(f"{len(cached)} cached partitions, "
+                         f"{len(bitmaps)} bitmaps")
+    if not cached:
+        return [], torch.zeros(0, dtype=torch.int64)
+    words, cols, part_of = [], [], []
+    for p, (t, w) in enumerate(zip(cached, bitmaps)):
         if not t.cols:
             raise ValueError("apply_bitmap_to_cache needs a cached column "
                              "per partition")
-        masked = {}
-        for c, v in t.cols.items():
-            masked[c], count = bak.bitmap_apply(words, v)
-        tabs.append(ColumnTable(masked))
-        counts.append(count)
-    return tabs, torch.stack(counts) if counts else torch.zeros(
-        0, dtype=torch.int64)
+        for v in t.cols.values():
+            words.append(w)
+            cols.append(v)
+            part_of.append(p)
+    masked, counts = bak.bitmap_apply_segments(words, cols, part_of)
+    tabs, i = [], 0
+    for t in cached:
+        tabs.append(ColumnTable(dict(zip(t.cols, masked[i:i + len(t.cols)]))))
+        i += len(t.cols)
+    return tabs, counts
 
 
 def compute_side_apply_batched(parts: Sequence[ColumnTable],

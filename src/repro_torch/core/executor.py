@@ -13,9 +13,10 @@ returns each partition's result and its §4.2 by-products (``aux``).
 - Aggregating plans: derived columns are computed over every row, rows
   get dense group ids ``(partition, keys...)`` in lexicographic order —
   the order the reference's ``(pid, keys...)`` lexsort gives — and one
-  ``fused_scan_agg`` launch per summed column applies the predicate and
-  adds the kept rows into their groups in f64. Groups no row kept are
-  dropped. Keyless plans group by partition alone and keep the
+  ``fused_scan_agg`` launch for all the summed columns (up to its
+  ``MAX_VALUES``; a counts-only plan takes one launch with none) applies
+  the predicate and adds the kept rows into their groups in f64. Groups
+  no row kept are dropped. Keyless plans group by partition alone and keep the
   reference's one row per partition with its ``[0.]`` placeholder for a
   partition with no rows.
 - ``bitmap_only`` plans add each partition's packed predicate words
@@ -269,14 +270,19 @@ class CompiledPushPlan:
         ids, G, decode = qops.group_ids([cols[k] for k in keys], lead=seg,
                                         lead_size=n_parts)
         pcols = [cols[c] for c in prog.columns] if prog is not None else []
-        sums: Dict[str, torch.Tensor] = {}
-        counts = None
-        for name, (fn, col) in self.agg_spec.items():
-            if fn in ("sum", "mean"):
-                sums[name], counts = fsa.fused_scan_agg(
-                    prog, pcols, ids, cols[col].to(torch.float64), G)
-        if counts is None:
-            _, counts = fsa.fused_scan_agg(prog, pcols, ids, None, G)
+        # each summed column once; all of them (Q1's four) in one launch
+        summed = list(dict.fromkeys(col for fn, col in self.agg_spec.values()
+                                    if fn in ("sum", "mean")))
+        vals = [v if v.dtype in fsa.VALUE_DTYPES else v.to(torch.float64)
+                for v in (cols[c] for c in summed)]
+        rows: List[torch.Tensor] = []
+        for i in range(0, max(len(vals), 1), fsa.MAX_VALUES):
+            s, counts = fsa.fused_scan_agg(prog, pcols, ids,
+                                           vals[i:i + fsa.MAX_VALUES], G)
+            rows += list(s)
+        by_col = dict(zip(summed, rows))
+        sums = {name: by_col[col] for name, (fn, col) in self.agg_spec.items()
+                if fn in ("sum", "mean")}
         if not keys:
             return self._keyless(sums, counts), list(range(n_parts + 1))
         nz = torch.nonzero(counts).flatten()

@@ -30,8 +30,8 @@ _PROG = [_P, _I, _P, _P, _I, _P, _P, _I]  # ops .. n_cols (program.cuh)
 SIGNATURES = {
     "predicate_bitmap": {
         "predicate_bitmap_launch": _PROG + [_LL, _I, _P, _P]},
-    "fused_scan_agg": {
-        "fused_scan_agg_launch": _PROG + [_P, _P, _I, _LL, _I, _P, _P, _I,
+    "fused_scan_agg": {  # ids, value pointers, f64 flags, V, R, G, ...
+        "fused_scan_agg_launch": _PROG + [_P, _P, _P, _I, _LL, _I, _P, _P, _I,
                                           _P]},
     "grouped_agg": {  # ids, values, vdt, R, G, then each regime's own
         "grouped_agg_smem_launch": [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
@@ -39,8 +39,9 @@ SIGNATURES = {
         "grouped_agg_l2_launch": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
         "grouped_agg_range_launch": [_P, _P, _I, _LL, _I, _I, _I, _I, _LL,
                                      _I, _I, _I, _P, _P, _P, _P, _P, _P]},
-    "bitmap_apply": {
-        "bitmap_apply_launch": [_P, _P, _I, _LL, _P, _P, _I, _P]},
+    "bitmap_apply": {  # segment table, n_seg, n_chunks, counts, sms, stream
+        "bitmap_apply_launch": [_P, _I, _LL, _P, _I, _P],
+        "bitmap_apply_chunk_rows": []},
     "shuffle": {
         "hash_partition_launch": [_P, _I, _LL, _I, _P, _P, _I, _P],
         "fused_scan_shuffle_launch": _PROG + [_P, _I, _LL, _I, _P, _P, _P, _I,

@@ -12,15 +12,16 @@
 // trip to device memory per tile, and a column read by several leaves
 // (Q19's l_quantity, by six) was loaded again from L1 for each.
 //
-// Design: the tiles are staged through shared memory. A persistent grid of
-// up to three blocks per SM walks tiles of tile_rows consecutive rows. Each
-// block keeps a ring of 2 to 4 stages in dynamic shared memory; a stage
-// holds the block's next tile of every distinct program column. One
-// producer warp fills the stages: lane 0 starts one 1-D bulk copy (TMA,
-// cp.async.bulk) per column for the tile's 16-byte-aligned interior, and
-// the lanes load the unaligned head and tail rows (a partition view may
-// start on any row) with ordinary loads. Completion is counted on the
-// stage's "full" mbarrier (32 producer arrivals plus the copies' bytes).
+// Design: the tiles are staged through shared memory (staging.cuh, shared
+// with fused_scan_agg.cu). A persistent grid of up to three blocks per SM
+// walks tiles of tile_rows consecutive rows. Each block keeps a ring of 2
+// to 4 stages in dynamic shared memory; a stage holds the block's next
+// tile of every distinct program column. One producer warp fills the
+// stages: lane 0 starts one 1-D bulk copy (TMA, cp.async.bulk) per column
+// for the tile's 16-byte-aligned interior, and the lanes load the
+// unaligned head and tail rows (a partition view may start on any row)
+// with ordinary loads. Completion is counted on the stage's "full"
+// mbarrier (32 producer arrivals plus the copies' bytes).
 // Eight consumer warps interpret the program over the ready stage, reading
 // leaves from shared memory, while the next stages load, then arrive on the
 // stage's "empty" mbarrier. Every column is thus read from device memory
@@ -33,68 +34,9 @@
 // columns whose constants fit (narrow_int_leaves). Each consumer warp's
 // 32 x TILE_K rows give TILE_K words by __ballot_sync, exactly the
 // little-endian words of the first design, bit for bit.
-#include "program.cuh"
+#include "staging.cuh"
 
-#define CONSUMER_WARPS 8
-#define THREADS (32 * (CONSUMER_WARPS + 1))
-#define SUB_ROWS (32 * TILE_K)  // one consumer warp's eval_staged
-#define MAX_STAGES 4
-#define HEADER 128              // mbarriers, ahead of the stages
-
-// Where each column's rows sit inside a stage; built by the host per launch.
-struct StageLayout {
-  int off[PP_MAX_COLS];      // row 0 of column c: region + its 16-byte head
-  int region[PP_MAX_COLS];   // column c's 16-byte-aligned region in a stage
-  int size[PP_MAX_COLS];     // bytes per value
-  int n_cols, n_stages, tile_rows, stage_bytes;
-};
-
-// The producer warp: stage tile rows [r0, r0 + n) of every column.
-__device__ __forceinline__ void fill_stage(const PredProgram& P,
-                                           const StageLayout& L,
-                                           unsigned char* st,
-                                           unsigned long long* full,
-                                           long long r0, long long n,
-                                           int lane) {
-  unsigned tx = 0u;
-  for (int c = 0; c < L.n_cols; ++c) {
-    const unsigned sz = (unsigned)L.size[c];
-    const size_t a = (size_t)P.cols[c] + (size_t)r0 * sz;
-    const size_t e = a + (size_t)n * sz;
-    size_t lo = (a + 15) & ~(size_t)15, hi = e & ~(size_t)15;
-    if (hi < lo) lo = hi = e;  // no aligned interior: every row by hand
-    tx += (unsigned)(hi - lo);
-    // head rows [0, n_head) and tail rows [tail, n) by ordinary loads
-    const int n_head = (int)((lo - a) / sz), tail = (int)((hi - a) / sz);
-    const int n_extra = n_head + (int)(n - tail);
-    unsigned char* row0 = st + L.off[c];
-    for (int x = lane; x < n_extra; x += 32) {
-      const int i = x < n_head ? x : tail + (x - n_head);
-      if (sz == 8)
-        reinterpret_cast<long long*>(row0)[i] =
-            reinterpret_cast<const long long*>(a)[i];
-      else
-        reinterpret_cast<int*>(row0)[i] = reinterpret_cast<const int*>(a)[i];
-    }
-  }
-  if (lane == 0) {
-    // this arrival comes after lane 0's own stores; the phase completes
-    // once the other 31 lanes have arrived and the copies have landed
-    mbar_arrive_expect_tx(full, tx);
-    for (int c = 0; c < L.n_cols; ++c) {
-      const unsigned sz = (unsigned)L.size[c];
-      const size_t a = (size_t)P.cols[c] + (size_t)r0 * sz;
-      const size_t e = a + (size_t)n * sz;
-      const size_t lo = (a + 15) & ~(size_t)15, hi = e & ~(size_t)15;
-      if (hi > lo)
-        bulk_copy_g2s(st + L.region[c] + (lo - (a & ~(size_t)15)),
-                      reinterpret_cast<const void*>(lo), (unsigned)(hi - lo),
-                      full);
-    }
-  } else {
-    mbar_arrive(full);
-  }
-}
+#define MAX_BLOCKS_PER_SM 3  // 3 x 288 threads at 56 registers fit an SM
 
 template <int W>
 __global__ void __launch_bounds__(THREADS)
@@ -106,28 +48,17 @@ predicate_bitmap_kernel(const __grid_constant__ StagedProgram S,
   unsigned long long* empty = full + MAX_STAGES;
   unsigned char* stages = smem + HEADER;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L.n_stages; ++s) {
-      mbar_init(&full[s], 32);
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) init_ring(full, empty, L.n_stages);
   __syncthreads();
   const long long T = L.tile_rows;
   const long long n_tiles = (R + T - 1) / T;
-  int s = 0;
-  unsigned phase = 0u;
   if (warp == CONSUMER_WARPS) {
-    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      mbar_wait(&empty[s], phase ^ 1u);  // the first pass finds it free
-      const long long r0 = t * T;
-      fill_stage(S.p, L, stages + (size_t)s * L.stage_bytes, &full[s], r0,
-                 min(T, R - r0), lane);
-      if (++s == L.n_stages) { s = 0; phase ^= 1u; }
-    }
+    produce(S.p, L, stages, full, empty, R, blockIdx.x, n_tiles, gridDim.x,
+            lane);
     return;
   }
+  int s = 0;
+  unsigned phase = 0u;
   const long long n_words = (R + 31) >> 5;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     mbar_wait(&full[s], phase);
@@ -155,58 +86,6 @@ predicate_bitmap_kernel(const __grid_constant__ StagedProgram S,
   }
 }
 
-// The per-SM shared memory of sm_90 and what the runtime keeps per block.
-#define SMEM_PER_SM (228 * 1024)
-#define SMEM_RESERVED (1024)
-#define MAX_BLOCKS_PER_SM 3  // 3 x 288 threads at 56 registers fit an SM
-
-// Pick the tile, the ring depth and the blocks per SM: as many blocks per
-// SM (up to MAX_BLOCKS_PER_SM) as hold two stages each, then up to
-// MAX_STAGES stages a block; the tile halves (down to one sub-tile per
-// consumer warp's share) until two stages fit in one block. More blocks
-// mean more consumer warps an SM; on a 600,000-row partition most blocks
-// get one tile, so these, not the ring, carry the time. Q19 with three
-// blocks of two stages against two of three: 0.0138 -> 0.0121 ms on one
-// partition, 0.3756 -> 0.3477 ms on 60M rows (NVIDIA H100 80GB HBM3,
-// 700.00 W; profile_kernels.py, PERF.md).
-static void plan_stages(StageLayout* L, const int* dtypes, int n_cols,
-                        const long long* col_ptrs, int* blocks_per_sm) {
-  memset(L, 0, sizeof(*L));
-  L->n_cols = n_cols;
-  for (int c = 0; c < n_cols; ++c)
-    L->size[c] = (dtypes[c] == DT_I64 || dtypes[c] == DT_F64) ? 8 : 4;
-  for (int T = CONSUMER_WARPS * SUB_ROWS;; T /= 2) {
-    int bytes = 0;
-    for (int c = 0; c < n_cols; ++c) {
-      L->region[c] = bytes;
-      L->off[c] = bytes + (int)(col_ptrs[c] & 15);
-      bytes += T * L->size[c] + 16;
-    }
-    L->tile_rows = T;
-    L->stage_bytes = bytes;
-    int bps = MAX_BLOCKS_PER_SM, room = 0;
-    for (;; --bps) {
-      room = SMEM_PER_SM / bps - SMEM_RESERVED - HEADER;
-      if (bps == 1 || 2 * bytes <= room) break;
-    }
-    if (2 * bytes <= room || T == SUB_ROWS) {
-      *blocks_per_sm = bps;
-      L->n_stages = room / bytes < MAX_STAGES ? room / bytes : MAX_STAGES;
-      return;
-    }
-  }
-}
-
-static int stack_depth(const PredProgram& P) {
-  int d = 0, most = 0;
-  for (int i = 0; i < P.n_ops; ++i) {
-    const int kind = P.ops[i].x & 15;
-    d += kind == K_AND || kind == K_OR ? -1 : 1;
-    most = d > most ? d : most;
-  }
-  return most;
-}
-
 template <int W>
 static int launch_staged(const StagedProgram& S, const StageLayout& L,
                          long long R, void* words, unsigned blocks,
@@ -232,7 +111,7 @@ extern "C" int predicate_bitmap_launch(
   if (R > 0) {
     StageLayout L;
     int bps = 1;
-    plan_stages(&L, dtypes, n_cols, col_ptrs, &bps);
+    plan_stages(&L, dtypes, n_cols, col_ptrs, 0, MAX_BLOCKS_PER_SM, &bps);
     const StagedProgram S = narrow_int_leaves(P);
     const size_t smem = HEADER + (size_t)L.n_stages * L.stage_bytes;
     const long long n_tiles = (R + L.tile_rows - 1) / L.tile_rows;

@@ -15,8 +15,10 @@
 // row's boolean stack is one 32-bit register.
 //
 // eval_staged (after eval_tile) runs the same program over a tile that
-// predicate_bitmap.cu has staged in shared memory, with a cheaper stack;
-// the mbarrier and bulk-copy helpers at the end serve that staging.
+// predicate_bitmap.cu or fused_scan_agg.cu has staged in shared memory
+// (staging.cuh), with a cheaper stack; the mbarrier and bulk-copy helpers
+// at the end serve that staging. eval_tile now serves fused_scan_shuffle
+// alone.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -220,7 +222,7 @@ __device__ __forceinline__ unsigned eval_tile(const PredProgram& P,
   return keep;
 }
 
-// ---- staged evaluation (predicate_bitmap.cu) ------------------------------
+// ---- staged evaluation (predicate_bitmap.cu, fused_scan_agg.cu) -----------
 // The program over a tile staged in shared memory: column c's rows start at
 // base + off[c], rows are 32-bit numbers from the tile's start, and lane l
 // holds rows r0 + 32 * k (r0 = the sub-tile's base + l). It costs fewer

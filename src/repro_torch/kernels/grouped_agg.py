@@ -141,7 +141,7 @@ def grouped_agg(ids: torch.Tensor, values: Optional[torch.Tensor],
     """(sums (G,) f64, counts (G,) int64) over the rows whose int32 id lies
     in [0, G). ``values`` may be f32, f64, or None for counts only. On the
     card ``plan`` picks the regime; ``run_plan`` launches a given plan."""
-    check_agg_inputs(ids, values, num_groups)
+    check_agg_inputs(ids, () if values is None else (values,), num_groups)
     R, dev, G = ids.shape[0], ids.device, num_groups
     if dev.type == "cpu":
         return ref.grouped_agg(ids, values, G)

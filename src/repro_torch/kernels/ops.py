@@ -53,11 +53,15 @@ def fused_scan_agg(cols: Dict[str, torch.Tensor], expr: Optional[Expr],
                    ids: torch.Tensor, values: Optional[torch.Tensor],
                    num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sums (G,), counts (G,) int32) over the rows passing ``expr``
-    (``None`` keeps every row)."""
+    (``None`` keeps every row): one value column, as in the JAX package, in
+    a one-value launch of the kernel."""
     prog = program_for(expr, cols) if expr is not None else None
     pcols = [cols[n] for n in prog.columns] if prog is not None else []
-    return _outputs(*_fsa.fused_scan_agg(prog, pcols, ids, values,
-                                         num_groups), values)
+    sums, counts = _fsa.fused_scan_agg(
+        prog, pcols, ids, [] if values is None else [values], num_groups)
+    return _outputs(sums[0] if values is not None else
+                    torch.zeros(num_groups, dtype=torch.float64,
+                                device=ids.device), counts, values)
 
 
 def bitmap_apply(words: torch.Tensor, col: torch.Tensor

@@ -8,7 +8,7 @@ compare them through ``.numpy().view(np.uint32)``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,26 +75,32 @@ def predicate_bitmap(prog: Program, cols: Sequence[torch.Tensor]
 
 
 def fused_scan_agg(prog: Optional[Program], cols: Sequence[torch.Tensor],
-                   ids: torch.Tensor, values: Optional[torch.Tensor],
+                   ids: torch.Tensor, values: Sequence[torch.Tensor],
                    num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sums (G,) f64, counts (G,) int64) over the rows that pass the
-    program (all rows when ``prog`` is None) and whose id lies in
-    ``[0, G)`` — the kernel drops other ids instead of writing out of
-    bounds."""
+    """(sums (V, G) f64, one row per value column, counts (G,) int64) over
+    the rows that pass the program (all rows when ``prog`` is None) and
+    whose id lies in ``[0, G)`` — the kernel drops other ids instead of
+    writing out of bounds."""
     keep = (ids >= 0) & (ids < num_groups)
     if prog is not None:
         keep &= run_program(prog, cols)
     g = ids[keep].to(torch.int64)
     counts = torch.bincount(g, minlength=num_groups)
-    sums = torch.zeros(num_groups, dtype=torch.float64, device=ids.device)
-    if values is not None:
-        sums.index_add_(0, g, values[keep].to(torch.float64))
+    sums = torch.zeros((len(values), num_groups), dtype=torch.float64,
+                       device=ids.device)
+    for row, v in zip(sums, values):
+        row.index_add_(0, g, v[keep].to(torch.float64))
     return sums, counts
 
 
 def grouped_agg(ids: torch.Tensor, values: Optional[torch.Tensor],
                 num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    return fused_scan_agg(None, (), ids, values, num_groups)
+    sums, counts = fused_scan_agg(None, (), ids,
+                                  () if values is None else (values,),
+                                  num_groups)
+    return (sums[0] if values is not None else
+            torch.zeros(num_groups, dtype=torch.float64,
+                        device=ids.device)), counts
 
 
 def bitmap_apply(words: torch.Tensor, col: torch.Tensor
@@ -105,6 +111,26 @@ def bitmap_apply(words: torch.Tensor, col: torch.Tensor
     masked = torch.where(keep, col, torch.zeros((), dtype=col.dtype,
                                                 device=col.device))
     return masked, keep.sum()
+
+
+def bitmap_apply_segments(words: Sequence[torch.Tensor],
+                          cols: Sequence[torch.Tensor],
+                          part_of: Sequence[int]
+                          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``bitmap_apply`` of each (words, column) segment, and the selected
+    rows of each partition ``0 .. max(part_of)`` (int64) from its first
+    segment."""
+    outs = []
+    counts = torch.zeros(max(part_of) + 1, dtype=torch.int64,
+                         device=cols[0].device)
+    seen = set()
+    for w, c, p in zip(words, cols, part_of):
+        masked, count = bitmap_apply(w, c)
+        outs.append(masked)
+        if p not in seen:
+            seen.add(p)
+            counts[p] = count
+    return outs, counts
 
 
 KNUTH = 2654435761

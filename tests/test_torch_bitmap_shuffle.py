@@ -28,6 +28,7 @@ from repro.queryproc import tpch as rtpch
 from repro.queryproc.table import ColumnTable as RTable
 from repro_torch.core import bitmap, runtime, shuffle
 from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN
+from repro_torch.core.cost import StorageResources
 from repro_torch.core.engine import EngineConfig, plan_requests, run_query
 from repro_torch.core.executor import (compile_push_plan, partition_words,
                                        unpack_parts)
@@ -154,6 +155,53 @@ def test_fig3_compute_half_applies_words_to_the_cache(qid, catalog,
         for c in cached:
             assert m.cols[c].shape == part.cols[c].shape
             assert not m.cols[c][~keep].any()
+
+
+def test_fig3_compute_half_on_mixed_column_types(catalog, ref_catalog):
+    """One ``apply_bitmap_to_cache`` over int32, int64, f32 and f64 cached
+    columns of every partition (the wrapper's segments mix 4- and 8-byte
+    values) equals the reference's filter, and counts each partition
+    once."""
+    pred, uncached, _ = _fig3_request("Q19", tex)
+    rpred = _fig3_request("Q19", rex)[0]
+    parts = _parts(catalog, "lineitem")
+    words, _ = bitmap.storage_side_bitmap_batched(parts, pred, uncached)
+    casts = {"l_orderkey": torch.int32, "l_partkey": torch.int64,
+             "l_discount": torch.float32, "l_extendedprice": torch.float64}
+    cached = [ColumnTable({c: p.cols[c].to(dt) for c, dt in casts.items()})
+              for p in parts]
+    masked, counts = bitmap.apply_bitmap_to_cache(cached, words)
+    assert counts.dtype == torch.int64 and counts.shape == (len(parts),)
+    for p, (m, rpart) in enumerate(zip(masked,
+                                       _parts(ref_catalog, "lineitem"))):
+        want = rops.filter_table(rpart, rpred)
+        assert int(counts[p]) == len(want)
+        keep = tops.unpack_bitmap(words[p], len(parts[p]))
+        assert list(m.cols) == list(casts)
+        for c, dt in casts.items():
+            assert m.cols[c].dtype == dt
+            np.testing.assert_array_equal(
+                m.cols[c][keep].numpy(),
+                want.cols[c].astype(m.cols[c].numpy().dtype))
+            assert not m.cols[c][~keep].any()
+
+
+def test_q1_pushed_aggregate_matches_reference(catalog, ref_catalog):
+    """Q1's partial aggregate (four sums and a count: one fused_scan_agg
+    call per batch) through ``run_query`` at full pushdown and at a
+    pushdown/pushback split: result, decisions and real bytes as the
+    reference's."""
+    for mode, power in (("eager", 1.0), ("adaptive", 0.1)):
+        want = reng.run_query(rqueries.build_query_legacy("Q1"), ref_catalog,
+                              reng.EngineConfig(
+                                  res=RResources(storage_power=power),
+                                  mode=mode, measured_feedback=False))
+        got = run_query(queries.build_query("Q1"), catalog, EngineConfig(
+            res=StorageResources(storage_power=power), mode=mode,
+            device="cpu"))
+        assert reng.results_equal(RTable(got.result.to_numpy()), want.result)
+        assert got.sim.decisions() == want.sim.decisions()
+        assert got.real_net_bytes == want.real_net_bytes
 
 
 @pytest.mark.parametrize("table,qid", [("lineitem", "Q19"), ("lineitem", "Q12"),

@@ -171,21 +171,76 @@ def test_grouped_agg_range_windows_match_plain(cuda):
     torch.testing.assert_close(s, ps, rtol=SUM_RTOL, atol=0.0)
 
 
+def _agg_values(cols, V, offset, device):
+    """V value columns, f64 and f32 in turn, each a view that starts
+    ``offset`` rows into its allocation."""
+    out = []
+    for j in range(V):
+        v = (cols["d"] * (j + 1) + cols["x"].to(torch.float64)).cpu().numpy()
+        out.append(_view_at(v if j % 2 == 0 else v.astype(np.float32),
+                            offset, device))
+    return out
+
+
+def _check_agg(prog, pcols, ids, values, G):
+    s, c = fsa.fused_scan_agg(prog, pcols, ids, values, G)
+    ps, pcnt = ref.fused_scan_agg(prog, pcols, ids, values, G)
+    assert s.shape == (len(values), G) and s.dtype == torch.float64
+    assert torch.equal(c, pcnt)
+    torch.testing.assert_close(s, ps, rtol=SUM_RTOL, atol=0.0)
+
+
 @pytest.mark.parametrize("G", (1, 600, 3072, 3073, 120_000))
 @pytest.mark.parametrize("R", ROWS)
 def test_fused_scan_agg_matches_plain(cuda, R, G):
+    """V = 0 to MAX_VALUES value columns (f64 and f32), with and without a
+    predicate, on views that start at row 0 and at row 1."""
     cols = _columns(R, R + G, cuda)
     rng = np.random.default_rng(G)
     # ids outside [0, G) must be dropped, never written
     ids = torch.from_numpy(rng.integers(-1, G + 1, R, np.int32)).to(cuda)
     prog = program_for(_predicates()[7], cols)
-    pcols = [cols[c] for c in prog.columns]
-    for values in (cols["x"], cols["d"], None):
-        for p, pc in ((prog, pcols), (None, ())):
-            s, c = fsa.fused_scan_agg(p, pc, ids, values, G)
-            ps, pcnt = ref.fused_scan_agg(p, pc, ids, values, G)
-            assert torch.equal(c, pcnt)
-            torch.testing.assert_close(s, ps, rtol=SUM_RTOL, atol=0.0)
+    for offset in (0, 1):
+        vcols = {k: _view_at(v.cpu().numpy(), offset, cuda)
+                 for k, v in cols.items()}
+        pcols = [vcols[c] for c in prog.columns]
+        vids = _view_at(ids.cpu().numpy(), offset, cuda)
+        for V in range(fsa.MAX_VALUES + 1):
+            values = _agg_values(cols, V, offset, cuda)
+            for p, pc in ((prog, pcols), (None, ())):
+                _check_agg(p, pc, vids, values, G)
+
+
+# csrc/fused_scan_agg.cu keeps G x (8V + 8) bytes of partials in shared
+# memory beside two stages while one block's opt-in 227 KB holds them
+SMEM_ROOM = 228 * 1024 - 1024 - 128
+
+
+@pytest.mark.parametrize("V", range(5))
+def test_fused_scan_agg_partials_cap_matches_plain(cuda, V):
+    """G on both sides of the shared-memory cap: with no predicate (no
+    stage) the cap is exactly SMEM_ROOM // (8V + 8); with one int32
+    predicate column, G past it by far and below it."""
+    assert fsa.MAX_VALUES == 4
+    cap = SMEM_ROOM // (8 * V + 8)
+    R = 300_007
+    cols = _columns(R, V, cuda)
+    prog = program_for(Col("a") < 40, cols)
+    for G in (cap, cap + 1, 1000, 2 * cap):
+        rng = np.random.default_rng(G)
+        ids = torch.from_numpy(rng.integers(0, G, R, np.int32)).to(cuda)
+        values = _agg_values(cols, V, 0, cuda)
+        _check_agg(None, (), ids, values, G)
+        _check_agg(prog, [cols["a"]], ids, values, G)
+
+
+def test_fused_scan_agg_takes_at_most_max_values(cuda):
+    ids = torch.zeros(64, dtype=torch.int32, device=cuda)
+    vals = torch.zeros(64, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        fsa.fused_scan_agg(None, (), ids, [vals] * (fsa.MAX_VALUES + 1), 4)
+    with pytest.raises(ValueError):
+        fsa.fused_scan_agg(None, (), ids, vals, 4)  # a tensor, not a list
 
 
 @pytest.mark.parametrize("G", (6, 3072, 120_000))
@@ -220,6 +275,46 @@ def test_bitmap_apply_matches_plain(cuda, R):
         assert masked.dtype == cols[c].dtype and masked.shape == (R,)
         assert torch.equal(_bits(masked), _bits(pmasked)), c
         assert int(count) == int(pcount)
+
+
+SEGMENT_COUNTS = (1, 2, 7, 100, 400)
+
+
+@pytest.mark.parametrize("n_seg", SEGMENT_COUNTS)
+def test_bitmap_apply_segments_match_plain(cuda, n_seg):
+    """Segments of 0 to 20,000 rows (some far from a multiple of 32), views
+    at odd row offsets (not 16-byte aligned), int32, int64, f32 and f64
+    columns mixed, several segments a partition sharing its words, an
+    all-zero and an all-one bitmap, and set bits past R."""
+    rng = np.random.default_rng(n_seg)
+    dtypes = (np.int32, np.int64, np.float32, np.float64)
+    words, cols, part_of = [], [], []
+    p = 0
+    while len(cols) < n_seg:
+        R = int(rng.choice([0, 1, 33, 4095, 4096, 4097, 20_000,
+                            int(rng.integers(1, 20_000))]))
+        keep = rng.random(R) < rng.choice([0.0, 0.03, 0.5, 1.0])
+        w = ref.pack_bitmap(torch.from_numpy(keep)).to(cuda)
+        if R % 32:
+            w[-1] |= -(1 << 31)  # a set bit past R is ignored
+        for _ in range(min(int(rng.integers(1, 4)), n_seg - len(cols))):
+            dt = dtypes[int(rng.integers(4))]
+            v = (rng.normal(size=R) * 1e3).astype(dt)
+            if R:
+                v[0] = -0.0 if dt in (np.float32, np.float64) else -7
+            words.append(w)
+            cols.append(_view_at(v, int(rng.integers(0, 4)), cuda))
+            part_of.append(p)
+        p += int(rng.integers(1, 3))  # some partitions have no segment
+    kernels.reset_launches()
+    outs, counts = ba.bitmap_apply_segments(words, cols, part_of)
+    assert kernels.launches()["bitmap_apply"] == (1 if any(
+        c.shape[0] for c in cols) else 0)
+    pouts, pcounts = ref.bitmap_apply_segments(words, cols, part_of)
+    assert counts.dtype == torch.int64 and torch.equal(counts, pcounts)
+    for o, po, c in zip(outs, pouts, cols):
+        assert o.dtype == c.dtype and o.shape == c.shape
+        assert torch.equal(_bits(o), _bits(po))
 
 
 def _keys(R, dtype, device):
@@ -287,6 +382,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ba.bitmap_apply(torch.zeros(1, dtype=torch.int32, device=cuda),
                         torch.zeros(64, dtype=torch.float64, device=cuda))
+
+
+def test_one_launch_per_agg_batch_and_fig3_apply(cuda, catalogs):
+    """Q1's pushed aggregate (four sums and a count) is one fused_scan_agg
+    launch, Q6's one; a Fig-3 apply over every partition and three cached
+    columns is one bitmap_apply launch."""
+    gpu, _ = catalogs
+    parts = [p.data for p in gpu.partitions_of("lineitem")]
+    for qid in ("Q1", "Q6"):
+        plan = compile_push_plan(queries.build_query(qid).plans["lineitem"])
+        kernels.reset_launches()
+        plan.execute_batch_parts(parts)
+        assert kernels.launches()["fused_scan_agg"] == 1, qid
+    pred = Col("l_quantity") <= 25
+    words, _ = bitmap.storage_side_bitmap_batched(parts, pred,
+                                                  ["l_quantity"])
+    cached = ["l_discount", "l_extendedprice", "l_partkey"]
+    kernels.reset_launches()
+    bitmap.apply_bitmap_to_cache([p.select(cached) for p in parts], words)
+    assert kernels.launches()["bitmap_apply"] == 1
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,8 @@ from repro.queryproc import expressions as rex
 from repro.queryproc import operators as rops
 from repro.queryproc import queries as rqueries
 from repro.queryproc import tpch as rtpch
+from repro_torch.kernels import bitmap_apply as ba
+from repro_torch.kernels import fused_scan_agg as fsa
 from repro_torch.kernels import grouped_agg as ga
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
@@ -93,6 +95,42 @@ def test_fused_scan_agg_matches_jax(R, with_predicate):
                                rtol=1e-4, atol=1e-2)
 
 
+@pytest.mark.parametrize("V", (0, 1, 4))
+@pytest.mark.parametrize("with_predicate", (True, False))
+@pytest.mark.parametrize("R", (1, 31, 33, 1024 + 5))
+def test_fused_scan_agg_values_match_jax_column_by_column(R, with_predicate,
+                                                          V):
+    """The wrapper's V value columns in one call (its plain version on the
+    CPU): sums row j against the JAX op over value column j, counts (also
+    with no value column) against the JAX op's."""
+    cols = _inputs(R)
+    rng = np.random.default_rng(R + V)
+    ids = rng.integers(0, GROUPS, R).astype(np.int32)
+    vals = [rng.uniform(-10, 10, R).astype(np.float32 if j % 2 else np.float64)
+            for j in range(V)]
+    prog = program_for(_expr(tex), _torch(cols)) if with_predicate else None
+    pcols = [_torch(cols)[c] for c in prog.columns] if prog else []
+    sums, counts = fsa.fused_scan_agg(prog, pcols, torch.from_numpy(ids),
+                                      [torch.from_numpy(v) for v in vals],
+                                      GROUPS)
+    assert sums.shape == (V, GROUPS) and sums.dtype == torch.float64
+    assert counts.dtype == torch.int64
+
+    def jax_op(v):
+        return jops.fused_scan_agg(
+            _jax(cols) if with_predicate else {},
+            jops.compile_predicate(_expr(rex)) if with_predicate else None,
+            jnp.asarray(ids), jnp.asarray(v), GROUPS, block=BLOCK)
+    for j in range(V):
+        js, jc = jax_op(vals[j].astype(np.float32))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+        np.testing.assert_allclose(sums[j].numpy(), np.asarray(js),
+                                   rtol=1e-4, atol=1e-2)
+    if V == 0:
+        _, jc = jax_op(np.zeros(R, np.float32))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+
+
 @pytest.mark.parametrize("R", ROWS)
 def test_grouped_agg_matches_jax(R):
     rng = np.random.default_rng(R)
@@ -130,6 +168,52 @@ def test_bitmap_apply_matches_jax(R, dtype):
     np.testing.assert_array_equal(masked.numpy().view(np.uint32),
                                   np.asarray(jm).view(np.uint32))
     assert int(count) == int(jc)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_bitmap_apply_segments_match_jax_per_segment(seed):
+    """The segmented wrapper (its plain version on the CPU) against the JAX
+    op segment by segment: 6,000-row partitions (not 32-row aligned) with
+    int32, int64, f32 and f64 columns, a partition of no rows, one whose
+    words are all zero, and each partition's count from its first
+    segment. The JAX op runs without 64-bit types, so an 8-byte column goes
+    to it as its low and high 32-bit halves (the bits are what is
+    compared)."""
+    rng = np.random.default_rng(seed)
+
+    def jax_apply(jw, col):
+        if col.itemsize == 4:
+            jm, jc = jops.bitmap_apply(jw, jnp.asarray(col), block=BLOCK)
+            return np.asarray(jm).view(np.uint32), jc
+        halves = col.view(np.uint32).reshape(-1, 2)
+        out = [jops.bitmap_apply(jw, jnp.asarray(halves[:, h]), block=BLOCK)
+               for h in (0, 1)]
+        return (np.stack([np.asarray(m) for m, _ in out], 1).reshape(-1)
+                .view(np.uint64), out[0][1])
+
+    dtypes = (np.int32, np.int64, np.float32, np.float64)
+    words, cols, part_of, want = [], [], [], []
+    for p, (R, frac) in enumerate(((6000, 0.4), (0, 0.5), (6000, 0.0),
+                                   (6000 - 17, 0.9))):
+        packed = rops.pack_bitmap(rng.random(R) < frac)
+        jw = jnp.asarray(packed)
+        for k in range(2):
+            dt = dtypes[(p + k + seed) % 4]
+            col = (rng.normal(size=R) * 1e3).astype(dt)
+            col[:2] = np.asarray([-0.0, 7], dt)[:R]
+            words.append(torch.from_numpy(packed.view(np.int32)))
+            cols.append(torch.from_numpy(col))
+            part_of.append(p)
+            want.append(jax_apply(jw, col) if R else (col, 0))
+    outs, counts = ba.bitmap_apply_segments(words, cols, part_of)
+    assert counts.dtype == torch.int64 and counts.shape == (4,)
+    for i, (o, (jm, jc)) in enumerate(zip(outs, want)):
+        assert o.dtype == cols[i].dtype and o.shape == cols[i].shape
+        raw = {4: np.uint32, 8: np.uint64}[o.element_size()]
+        np.testing.assert_array_equal(o.numpy().view(raw), jm.view(raw))
+        if i % 2 == 0:  # a partition's first segment
+            assert int(counts[part_of[i]]) == int(jc)
+    assert int(counts[1]) == 0 and int(counts[2]) == 0
 
 
 @pytest.mark.parametrize("P", TARGETS)

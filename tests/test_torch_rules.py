@@ -94,7 +94,7 @@ def test_kernel_wrappers_do_not_fall_back_to_the_plain_version():
     with pytest.raises(ValueError):
         ga.grouped_agg(ids, vals, 4)
     with pytest.raises(ValueError):
-        fsa.fused_scan_agg(None, (), ids, vals, 4)
+        fsa.fused_scan_agg(None, (), ids, [vals], 4)
     with pytest.raises(ValueError):
         kops.predicate_bitmap({"a": ids}, Col("a") < 3)
     words = torch.zeros(2, dtype=torch.int32, device=meta)
