@@ -17,6 +17,7 @@ GPU is present. Phases:
    ``predicate_bitmap`` is also timed on one 600,000-row lineitem
    partition (the shape of the Fig-4 launches). ``fused_scan_agg`` runs
    Q1's four sums in one launch, and Q1 with one sum and Q6 beside it.
+   Q18's pushed aggregate (no predicate, about 58.8M groups) beside them.
    ``bitmap_apply`` runs Q19's whole Fig-3 apply (100 partitions x 3
    cached columns) in one launch, and one partition's columns and the
    60M-row ``l_extendedprice`` beside it. ``grouped_agg`` runs at
@@ -26,13 +27,24 @@ GPU is present. Phases:
    other regimes).
 3. Engine: builds the TPC-H catalog at ``SF`` = 1000 (TPC-H SF10's row
    counts: 60M lineitem rows in 100 partitions over 4 storage nodes)
-   on the card and runs Q1, Q3, Q6, Q12 and Q19 through
-   ``repro_torch.core.engine.run_query`` in the no_pushdown, eager and
-   adaptive modes at storage_power 1.0 and adaptive at 0.1. All modes must
-   agree, Q1 and Q6 must agree with an independent torch evaluation over
-   the whole lineitem table, and at power 0.1 Q1 and Q3 must split between
-   pushdown and pushback.
-4. §4.2 operators on the same catalog: the Fig-3 storage-side bitmap with
+   on the card and runs all 15 queries through
+   ``repro_torch.core.engine.compile_and_run`` in the no_pushdown, eager
+   and adaptive modes at storage_power 1.0 and adaptive at 0.1, printing
+   each run's wall time, split, real bytes and peak device memory, and the
+   regimes ``grouped_agg`` ran in. All modes must agree; Q1, Q6 and Q18
+   must agree with an independent torch evaluation over the whole tables;
+   at power 0.1 Q1 and Q3 must split between pushdown and pushback; the
+   splits and bytes of Q1, Q3, Q6, Q12 and Q19 are compared with the hand-
+   built plans' (``PR14_ADAPTIVE_LOW``).
+4. Compiler: a second catalog from the same arrays, lineitem clustered by
+   ``l_orderkey``. Q18 compiled for it pushes its HAVING and must equal
+   Q18 on the first catalog; a custom IR's ``TopK`` absorbed over a
+   filtered lineitem scan must equal ``torch.topk`` over the whole table;
+   a custom IR's pushed min/max aggregate must equal ``scatter_reduce``
+   over the whole table. ``predicate_bitmap`` is timed on the HAVING
+   program over the clustered partial aggregate. The catalog is dropped
+   before the next phase.
+5. §4.2 operators on the first catalog: the Fig-3 storage-side bitmap with
    the cached columns masked by ``bitmap_apply``, the Fig-4 compute-side
    bitmap, the storage-side shuffle of lineitem and orders against the
    compute-side one, the shuffle plans of Q3, Q12 and Q19 with their
@@ -40,13 +52,15 @@ GPU is present. Phases:
    with shuffle pushdown. Every result is held to the plain operators,
    bitwise. The host-clock time of each ``apply_bitmap_to_cache`` call is
    printed alone (until it returns, and until the card is done).
-5. Prints each kernel's launches in phases 3 and 4 (all must be above 0),
+6. Prints each kernel's launches in phases 3 to 5 (all must be above 0),
    the per-kernel JSON line and, last, the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -63,9 +77,19 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor rate
 SUM_RTOL = 1e-9               # f64 sums: atomic order differs from the plain
 #                               version's, nothing else does
-QUERY_IDS = ("Q1", "Q3", "Q6", "Q12", "Q19")
+KERNEL_QUERIES = ("Q1", "Q3", "Q6", "Q12", "Q19")  # the kernel phase's
 CONFIGS = (("no_pushdown", 1.0), ("eager", 1.0), ("adaptive", 1.0),
            ("adaptive", 0.1))
+# adaptive at power 0.1 with the hand-built plans: (admitted, pushed back,
+# real bytes) of PERF.md section 5 (chip_smoke.py, NVIDIA H100 80GB HBM3,
+# 700.00 W). The compiled plans of these five are the same plans, but Q3's
+# come in the splitter's table order (lineitem, orders, customer), which
+# orders its requests, and the Arbitrator admits in request order
+PR14_ADAPTIVE_LOW = {"Q1": (36, 64, 599_001_920), "Q3": (60, 72, 865_100_164),
+                     "Q6": (48, 52, 441_604_404), "Q12": (56, 60, 515_923_152),
+                     "Q19": (36, 80, 601_183_684)}
+CLUSTER = {"lineitem": "l_orderkey"}
+NODES, RPP = 4, 600_000       # storage nodes; rows of a lineitem partition
 SHUFFLE_TARGETS = 4           # compute nodes of the §4.2 shuffle
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "fused_scan_agg": "src/repro/kernels/fused_scan_agg.py:56",
@@ -153,7 +177,8 @@ def kernel_phase(cat, timer):
     from repro_torch.queryproc.expressions import columns_of
     from repro_torch.queryproc.table import ColumnTable
 
-    li_plans = {q: queries.build_query(q).plans["lineitem"] for q in QUERY_IDS}
+    li_plans = {q: queries.build_query(q).plans["lineitem"]
+                for q in KERNEL_QUERIES}
     need = sorted(set().union(*(columns_of(p.predicate)
                                 for p in li_plans.values()))
                   | {"l_returnflag", "l_linestatus", "l_extendedprice",
@@ -241,6 +266,25 @@ def kernel_phase(cat, timer):
         else:
             records["fused_scan_agg"] = rec
     del q1_cols, q1_vals, vals, sums, psums
+    # Q18's pushed aggregate: all of lineitem by (partition, l_orderkey),
+    # no predicate; the codes overflow the dense limit, so group_ids
+    # compresses them with torch.unique (about 588,000 groups a partition)
+    ids, G, _ = operators.group_ids([li["l_orderkey"]], lead=seg,
+                                    lead_size=n_parts)
+    vals = [li["l_quantity"]]
+    sums, counts = fsa.fused_scan_agg(None, (), ids, vals, G)
+    psums, pcounts = ref.fused_scan_agg(None, (), ids, vals, G)
+    check(torch.equal(counts, pcounts), "fused_scan_agg Q18: counts differ")
+    check(torch.allclose(sums, psums, rtol=SUM_RTOL, atol=0.0),
+          f"fused_scan_agg Q18: sums differ beyond rtol {SUM_RTOL}")
+    b_ms, b_by = bound(nbytes(ids, *vals) + G * 16, 2 * R)
+    lines.append(dict(
+        name="fused_scan_agg", max_abs_err=float((sums - psums).abs().max()),
+        ms=timer(lambda: fsa.fused_scan_agg(None, (), ids, vals, G)),
+        plain_ms=timer(lambda: ref.fused_scan_agg(None, (), ids, vals, G)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"Q18 partial agg, no predicate, R={R}, G={G}, V=1"))
+    del ids, vals, sums, psums, counts, pcounts
 
     # grouped_agg: Q3's residual group-by (orderkey, orderdate,
     # shippriority) over the joined pushdown results (the path's shape), then
@@ -421,15 +465,62 @@ def independent_q1_q6(cat):
     return {"Q1": q1, "Q6": q6}
 
 
+def independent_q18(cat, threshold: float = 150.0):
+    """Q18 in torch over the whole lineitem and orders tables, with none
+    of the engine's code: each order's quantity summed by ``index_add_``
+    at its key, the orders above the threshold, their 100 largest totals."""
+    from repro_torch.queryproc.table import ColumnTable
+    li = cat.scan_table("lineitem", ["l_orderkey", "l_quantity"]).cols
+    od = cat.scan_table("orders", ["o_orderkey", "o_custkey", "o_orderdate",
+                                   "o_totalprice"]).cols
+    n = int(torch.maximum(li["l_orderkey"].max(), od["o_orderkey"].max())) + 1
+    qty = torch.zeros(n, dtype=torch.float64, device=li["l_quantity"].device)
+    qty.index_add_(0, li["l_orderkey"].long(), li["l_quantity"])
+    sum_qty = qty[od["o_orderkey"].long()]
+    big = torch.nonzero(sum_qty > threshold).flatten()
+    top = big[torch.topk(od["o_totalprice"][big], min(100, len(big))).indices]
+    return ColumnTable({"l_orderkey": od["o_orderkey"][top],
+                        "sum_qty": sum_qty[top],
+                        **{c: v[top] for c, v in od.items()}})
+
+
+@contextlib.contextmanager
+def grouped_agg_regimes(seen: list):
+    """Record the regime, rows and groups of every ``grouped_agg`` launch
+    made inside the block (``grouped_agg.plan`` picks the regime)."""
+    from repro_torch.kernels import grouped_agg as ga
+    run_plan = ga.run_plan
+
+    def recording(plan, ids, values, G):
+        seen.append(f"{plan.regime}(R={ids.shape[0]},G={G})")
+        return run_plan(plan, ids, values, G)
+    ga.run_plan = recording
+    try:
+        yield seen
+    finally:
+        ga.run_plan = run_plan
+
+
+def host_counts(on_card):
+    """(device allocations of the caching allocator so far, full
+    collections of Python's cyclic GC so far): what a run can stall on
+    outside its own work."""
+    allocs = (torch.cuda.memory_stats().get("num_device_alloc", 0)
+              if on_card else 0)
+    return allocs, gc.get_stats()[2]["collections"]
+
+
 def engine_phase(cat, sync):
-    """Every query in every config through ``run_query``; returns the
+    """Every query in every config through ``compile_and_run``; returns the
     kernels' launch counts over exactly these runs."""
     from repro_torch import kernels
+    from repro_torch.compiler import QUERY_IDS
     from repro_torch.core.cost import StorageResources
-    from repro_torch.core.engine import EngineConfig, results_equal, run_query
-    from repro_torch.queryproc import queries
+    from repro_torch.core.engine import (EngineConfig, compile_and_run,
+                                         results_equal)
 
-    expected = independent_q1_q6(cat)
+    expected = {**independent_q1_q6(cat), "Q18": independent_q18(cat)}
+    on_card = cat.device.type == "cuda"
     t0 = time.perf_counter()
     for p in cat.iter_partitions():
         p.data.stats()
@@ -444,25 +535,37 @@ def engine_phase(cat, sync):
     # use, which would otherwise land in whichever run comes first
     t0 = time.perf_counter()
     for qid in QUERY_IDS:
-        for mode, power in CONFIGS:
-            run_query(queries.build_query(qid), cat, config(mode, power))
+        with grouped_agg_regimes([]) as seen:
+            for mode, power in CONFIGS:
+                compile_and_run(qid, cat, config(mode, power))
+        print(f"engine: {qid} grouped_agg launches over the four configs: "
+              f"{', '.join(dict.fromkeys(seen)) or 'none'}")
     sync()
     print(f"engine: warm-up pass in {time.perf_counter() - t0:.3f} s")
     kernels.reset_launches()
+    peaks = [0.0]
     for qid in QUERY_IDS:
         runs = []
         for mode, power in CONFIGS:
             cfg = config(mode, power)
             sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            before = host_counts(on_card)
             t0 = time.perf_counter()
-            run = run_query(queries.build_query(qid), cat, cfg)
+            run = compile_and_run(qid, cat, cfg)
             sync()
             wall = time.perf_counter() - t0
+            allocs, gcs = (a - b for a, b in zip(host_counts(on_card), before))
+            if on_card:
+                peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            peak = f"{peaks[-1]:.2f} GB" if on_card else "not measured"
             print(f"engine: {qid} mode={mode} storage_power={power} "
                   f"wall_s={wall:.4f} admitted={run.n_admitted} "
                   f"pushed_back={run.n_pushed_back} "
                   f"real_net_bytes={run.real_net_bytes} "
-                  f"result_rows={len(run.result)}")
+                  f"result_rows={len(run.result)} peak={peak} "
+                  f"device_allocs={allocs} gc_full_collections={gcs}")
             check(len(run.result) > 0, f"{qid} {mode}: empty result")
             for c, v in run.result.cols.items():
                 if v.is_floating_point():
@@ -480,7 +583,160 @@ def engine_phase(cat, sync):
             check(low.n_admitted > 0 and low.n_pushed_back > 0,
                   f"{qid} at power 0.1: no pushdown/pushback split "
                   f"({low.n_admitted}/{low.n_pushed_back})")
+        if qid in PR14_ADAPTIVE_LOW and on_card:
+            low = runs[-1]
+            got = (low.n_admitted, low.n_pushed_back, low.real_net_bytes)
+            print(f"engine: {qid} adaptive 0.1 (admitted, pushed back, real "
+                  f"bytes) {got}, hand-built plans {PR14_ADAPTIVE_LOW[qid]}: "
+                  f"{'same' if got == PR14_ADAPTIVE_LOW[qid] else 'DIFFERS'}")
+    print(f"engine: peak over the timed runs "
+          f"{f'{max(peaks):.2f} GB' if on_card else 'not measured'}")
     return kernels.launches()
+
+
+# ---------------------------------------------------------- compiler phase
+def compiler_phase(cat, ccat, timer, sync):
+    """The plans only the compiler emits, held to independent evaluations:
+    Q18 with its HAVING pushed on ``ccat`` (lineitem clustered by
+    ``l_orderkey``) against Q18 on ``cat``, an absorbed TopK and a pushed
+    min/max aggregate on ``cat``. Each driven run has the launch counts
+    zeroed just before it and read just after. Returns the counts summed
+    over the driven runs and the kernel record of ``predicate_bitmap`` on
+    the HAVING program."""
+    from repro_torch import kernels
+    from repro_torch.compiler import compile_ir, compile_query_detailed, ir
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import (EngineConfig, compile_and_run,
+                                         results_equal, run_query)
+    from repro_torch.core.executor import compile_push_plan
+    from repro_torch.kernels import predicate_bitmap as pb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+    from repro_torch.queryproc.expressions import Col
+    from repro_torch.queryproc.table import ColumnTable
+    from repro_torch.queryproc.tpch import N_LINESTATUS, date
+
+    launches = {n: 0 for n in kernels.WRAPPERS}
+
+    def drive(fn, *args, **kwargs):
+        sync()
+        kernels.reset_launches()
+        out = fn(*args, **kwargs)
+        sync()
+        for n, c in kernels.launches().items():
+            launches[n] += c
+        return out
+
+    def config(mode, power):
+        return EngineConfig(res=StorageResources(storage_power=power),
+                            mode=mode, device=cat.device)
+
+    # Q18 with its HAVING pushed, on the clustered catalog
+    q18 = compile_ir(compile_query_detailed("Q18").root, "Q18",
+                     clustered=ccat.clustered)
+    plan = q18.plans["lineitem"]
+    check(plan.having is not None, "Q18 on the clustered catalog: HAVING "
+                                   "not pushed")
+    for mode, power in CONFIGS:
+        plain = compile_and_run("Q18", cat, config(mode, power))
+        t0 = time.perf_counter()
+        run = drive(run_query, q18.query, ccat, config(mode, power))
+        wall = time.perf_counter() - t0
+        check(results_equal(run.result, plain.result),
+              f"Q18 clustered, {mode} at power {power}: differs from Q18 on "
+              f"the unclustered catalog")
+        recon, precon = run.net_bytes_recon, plain.net_bytes_recon
+        print(f"compiler: Q18 HAVING pushed, mode={mode} storage_power="
+              f"{power} wall_s={wall:.4f} admitted={run.n_admitted} "
+              f"pushed_back={run.n_pushed_back} real_net_bytes="
+              f"{run.real_net_bytes} (pushdown {recon['real_pushdown_bytes']})"
+              f"; unclustered {plain.real_net_bytes} (pushdown "
+              f"{precon['real_pushdown_bytes']})")
+    del run, plain
+    # predicate_bitmap on the HAVING program over the clustered partials
+    partial = dataclasses.replace(plan, having=None)
+    tabs, _ = compile_push_plan(partial).execute_batch_parts(
+        [p.data for p in ccat.partitions_of("lineitem")])
+    out = ColumnTable.concat(tabs).cols
+    prog = program_for(plan.having, out)
+    cols = [out[c] for c in prog.columns]
+    words, plain_words = pb.predicate_bitmap(prog, cols), \
+        ref.predicate_bitmap(prog, cols)
+    check(torch.equal(words, plain_words), "predicate_bitmap Q18 HAVING: "
+                                           "words differ")
+    G = cols[0].shape[0]
+    b_ms, b_by = bound(nbytes(*cols, words), G * prog.n_ops)
+    record = dict(
+        name="predicate_bitmap", max_abs_err=0.0,
+        ms=timer(lambda: pb.predicate_bitmap(prog, cols)),
+        plain_ms=timer(lambda: ref.predicate_bitmap(prog, cols)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"Q18 HAVING sum_qty > 150 over the clustered partial "
+              f"aggregate, {G} groups in {len(tabs)} partitions")
+    del tabs, out, cols, words, plain_words
+
+    li = cat.scan_table("lineitem", [
+        "l_orderkey", "l_extendedprice", "l_discount", "l_quantity",
+        "l_shipdate", "l_returnflag", "l_linestatus"]).cols
+    D = date(1995, 3, 15)
+    m = li["l_shipdate"] < D
+    # a TopK absorbed over a filtered, derived lineitem scan
+    n = ir.Scan("lineitem", ("l_orderkey", "l_extendedprice"))
+    n = ir.Map(ir.Filter(n, Col("l_shipdate") < D), (
+        ("revenue", ("l_extendedprice", "l_discount"),
+         lambda e, d: e * (1 - d)),))
+    top = compile_ir(ir.TopK(n, "l_extendedprice", 100), "TOPK")
+    check(top.plans["lineitem"].top_k == ("l_extendedprice", 100, False),
+          "custom TopK: not absorbed")
+    e = li["l_extendedprice"][m]
+    idx = torch.topk(e, 100).indices
+    want = ColumnTable({"l_orderkey": li["l_orderkey"][m][idx],
+                        "l_extendedprice": e[idx],
+                        "revenue": (e * (1 - li["l_discount"][m]))[idx]})
+    for mode, power in (("eager", 1.0), ("adaptive", 0.1)):
+        run = drive(run_query, top.query, cat, config(mode, power))
+        check(same_rows(run.result, want),
+              f"custom TopK {mode} at power {power}: differs from torch.topk")
+        print(f"compiler: TopK 100 of l_extendedprice over {int(m.sum())} "
+              f"filtered rows, mode={mode} storage_power={power} "
+              f"admitted={run.n_admitted} pushed_back={run.n_pushed_back} "
+              f"real_net_bytes={run.real_net_bytes}")
+
+    # a pushed min/max aggregate
+    keys = ("l_returnflag", "l_linestatus")
+    agg = ir.Aggregate(ir.Filter(ir.Scan("lineitem", ()),
+                                 Col("l_shipdate") < D), keys,
+                       (("lo_price", "min", "l_extendedprice"),
+                        ("hi_price", "max", "l_extendedprice"),
+                        ("last_ship", "max", "l_shipdate"),
+                        ("qty", "sum", "l_quantity"), ("n", "count", "")))
+    mm = compile_ir(agg, "MINMAX")
+    check(mm.plans["lineitem"].agg is not None, "custom min/max: not pushed")
+    code = (li["l_returnflag"].long() * N_LINESTATUS
+            + li["l_linestatus"])[m]
+    cnt = torch.bincount(code)
+    have = torch.nonzero(cnt).flatten()
+
+    def reduce(col, how):
+        v = li[col][m]
+        return torch.empty(cnt.shape[0], dtype=v.dtype, device=v.device) \
+            .scatter_reduce_(0, code, v, how, include_self=False)[have]
+    want = ColumnTable({
+        "l_returnflag": (have // N_LINESTATUS).to(torch.int32),
+        "l_linestatus": (have % N_LINESTATUS).to(torch.int32),
+        "lo_price": reduce("l_extendedprice", "amin"),
+        "hi_price": reduce("l_extendedprice", "amax"),
+        "last_ship": reduce("l_shipdate", "amax"),
+        "qty": reduce("l_quantity", "sum"), "n": cnt[have]})
+    for mode, power in (("eager", 1.0), ("adaptive", 0.1)):
+        run = drive(run_query, mm.query, cat, config(mode, power))
+        check(results_equal(run.result, want),
+              f"custom min/max {mode} at power {power}: differs from "
+              f"scatter_reduce")
+        print(f"compiler: min/max by {keys}, mode={mode} storage_power="
+              f"{power} admitted={run.n_admitted} pushed_back="
+              f"{run.n_pushed_back} real_net_bytes={run.real_net_bytes}")
+    return launches, record
 
 
 # ------------------------------------------------------------ §4.2 phase
@@ -707,6 +963,18 @@ def section42_phase(cat, sync):
     return launches
 
 
+def print_records(recs, names) -> None:
+    """One line per kernel record; ``names`` label records that carry no
+    ``name`` of their own."""
+    for i, rec in enumerate(recs):
+        name = rec.get("name") or names[i]
+        regime = f" regime={rec['regime']}" if "regime" in rec else ""
+        print(f"kernel: {name} [{rec['shape']}] ms={rec['ms']:.4f} "
+              f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}) library_ms={rec['library_ms']} "
+              f"max_abs_err={rec['max_abs_err']:.3g}{regime}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -719,6 +987,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     from repro_torch.queryproc import tpch
+    from repro_torch.storage.catalog import catalog_from_arrays
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -732,8 +1001,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    cat = tpch.build_catalog(sf=SF, seed=args.seed, num_nodes=4,
-                             rows_per_partition=600_000)
+    arrays = tpch.generate_tables(SF, args.seed)
+    cat = catalog_from_arrays(arrays, NODES, RPP)
     torch.cuda.synchronize()
     print(f"catalog: sf={SF} seed={args.seed} "
           f"lineitem={sum(len(p.data) for p in cat.partitions_of('lineitem'))} "
@@ -747,23 +1016,37 @@ def main() -> int:
     records, extra = kernel_phase(cat, cuda_ms)
     print(f"kernel phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
-    for name, rec in [*records.items(), *((r["name"], r) for r in extra)]:
-        regime = f" regime={rec['regime']}" if "regime" in rec else ""
-        print(f"kernel: {name} [{rec['shape']}] ms={rec['ms']:.4f} "
-              f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']}) library_ms={rec['library_ms']} "
-              f"max_abs_err={rec['max_abs_err']:.3g}{regime}")
+    print_records([*records.values(), *extra], list(records))
 
+    t0 = time.perf_counter()
     engine = engine_phase(cat, torch.cuda.synchronize)
+    print(f"engine phase: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    ccat = catalog_from_arrays(arrays, NODES, RPP, cluster=CLUSTER)
+    del arrays
+    torch.cuda.synchronize()
+    print(f"clustered catalog: lineitem by l_orderkey in "
+          f"{len(ccat.partitions_of('lineitem'))} partitions, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    comp, having = compiler_phase(cat, ccat, cuda_ms, torch.cuda.synchronize)
+    del ccat
+    torch.cuda.empty_cache()
+    print(f"compiler phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
+    print_records([having], [])
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sec42 = section42_phase(cat, torch.cuda.synchronize)
     print(f"section 4.2 phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
-    launches = {n: engine[n] + sec42[n] for n in records}
+    launches = {n: engine[n] + comp[n] + sec42[n] for n in records}
     print("kernels: " + "; ".join(
         f"{n} check=ok launches={launches[n]} (engine {engine[n]}, "
-        f"section 4.2 {sec42[n]})" for n in records))
+        f"compiler {comp[n]}, section 4.2 {sec42[n]})" for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

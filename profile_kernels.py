@@ -2,7 +2,7 @@
 """Time the alternatives of the redesigned kernels on one GPU.
 
     python3 profile_kernels.py {grouped_agg,predicate_bitmap,fused_scan_agg,
-                                bitmap_apply} [--seed 0]
+                                bitmap_apply,engine} [--seed 0]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 ``repro_torch`` comes from ``PYTHONPATH`` when it is found there, else from
@@ -35,10 +35,22 @@ Prints the card's name and power limit.
   side (``core.bitmap.apply_bitmap_to_cache`` over 100 partitions and
   Q19's three cached columns): its device time, its launches, and the host
   time of the call alone and until the card is done.
+- ``engine``: on the same catalog, the wall time of Q1, Q3, Q6, Q12 and
+  Q19 in chip_smoke's four configurations, each run once untimed and then
+  ``--repeats`` times: first through the hand-built plans
+  (``run_query(build_query_legacy(qid))``, or ``build_query`` where a
+  checkout has no legacy builder), then, where the checkout has
+  ``compile_and_run``, through it; then one pass of every query in every
+  configuration (chip_smoke's warm-up) and Q1 again, then Q1 again after
+  ``torch.cuda.empty_cache()``, these two with no untimed run ahead, as
+  chip_smoke times them. Each line gives every wall, their median,
+  the caching allocator's device allocations, frees and retries and the
+  full collections of Python's cyclic GC over the line's runs; also the host time of ``compile_query("Q1")``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import statistics
 import subprocess
@@ -284,11 +296,82 @@ def time_bitmap_apply(dev, seed):
           f"host_to_done_ms={host_s(call, torch.cuda.synchronize) * 1e3:.4f}")
 
 
+def time_engine(dev, seed, repeats):
+    from chip_smoke import CONFIGS
+    from repro_torch.core import engine as eng
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.kernels import _build
+    from repro_torch.queryproc import queries
+
+    _build.build_all()
+    cat = lineitem_catalog(dev, seed)
+    for p in cat.iter_partitions():
+        p.data.stats()
+    seed_qids = ("Q1", "Q3", "Q6", "Q12", "Q19")
+    legacy = getattr(queries, "build_query_legacy", queries.build_query)
+
+    def hand_built(qid, cfg):
+        return eng.run_query(legacy(qid), cat, cfg)
+
+    def alloc_counts():
+        st = torch.cuda.memory_stats()
+        return [st.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                       "num_alloc_retries")] + [
+            gc.get_stats()[2]["collections"]]
+
+    def walls(label, run, qids, configs=CONFIGS, warm=True):
+        for qid in qids:
+            for mode, power in configs:
+                cfg = eng.EngineConfig(res=StorageResources(
+                    storage_power=power), mode=mode, device=dev)
+                if warm:
+                    run(qid, cfg)
+                before, ts = alloc_counts(), []
+                for _ in range(repeats):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(qid, cfg)
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t0)
+                allocs, frees, retries, gcs = (a - b for a, b in
+                                               zip(alloc_counts(), before))
+                print(f"engine {label} {qid} {mode} {power}: walls_s="
+                      f"{[round(t, 4) for t in ts]} "
+                      f"median_s={statistics.median(ts):.4f} "
+                      f"device_allocs={allocs} device_frees={frees} "
+                      f"alloc_retries={retries} gc_full_collections={gcs} "
+                      f"reserved_gb="
+                      f"{torch.cuda.memory_reserved() / 1e9:.2f}")
+
+    walls("hand-built", hand_built, seed_qids)
+    if not hasattr(eng, "compile_and_run"):
+        return
+    from repro_torch.compiler import QUERY_IDS, compile_query
+    print(f"engine compile_query Q1 host_ms="
+          f"{host_s(lambda: compile_query('Q1'), lambda: None) * 1e3:.4f}")
+    def compiled(qid, cfg):
+        return eng.compile_and_run(qid, cat, cfg)
+
+    walls("compiled", compiled, seed_qids)
+    for qid in QUERY_IDS:
+        for mode, power in CONFIGS:
+            compiled(qid, eng.EngineConfig(res=StorageResources(
+                storage_power=power), mode=mode, device=dev))
+    torch.cuda.synchronize()
+    walls("compiled after all 15 queries", compiled, ["Q1"], warm=False)
+    torch.cuda.empty_cache()
+    walls("compiled after empty_cache", compiled, ["Q1"], CONFIGS[:1],
+          warm=False)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap",
-                                       "fused_scan_agg", "bitmap_apply"))
+                                       "fused_scan_agg", "bitmap_apply",
+                                       "engine"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--repeats", type=int, default=5,
+                    help="timed runs a configuration (engine)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -306,6 +389,8 @@ def main() -> int:
         time_fused_scan_agg(dev, args.seed)
     elif args.kernel == "bitmap_apply":
         time_bitmap_apply(dev, args.seed)
+    elif args.kernel == "engine":
+        time_engine(dev, args.seed, args.repeats)
     else:
         time_grouped_agg(dev, torch.Generator(device=dev).manual_seed(
             args.seed), torch.cuda.get_device_properties(dev)

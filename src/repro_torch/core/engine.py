@@ -1,7 +1,7 @@
 """End-to-end query engine over the device-resident storage layer.
 
-Port of ``repro.core.engine`` (``run_query`` and what it needs). For one
-query the engine:
+Port of ``repro.core.engine`` (``compile_and_run``, ``run_query`` and
+what they need). For one query the engine:
 
 1. plans one request per partition of every scanned table and costs it
    from the partition's column stats,
@@ -31,7 +31,7 @@ from repro_torch.queryproc.table import ColumnTable
 from repro_torch.storage.catalog import Catalog, Partition
 
 __all__ = ["MODES", "EngineConfig", "PlannedRequest", "QueryRun",
-           "plan_requests", "run_query", "results_equal"]
+           "compile_and_run", "plan_requests", "run_query", "results_equal"]
 
 
 @dataclasses.dataclass
@@ -122,6 +122,20 @@ def run_query(query, catalog: Catalog, cfg: EngineConfig,
         real_net_bytes=split.real_net_bytes,
         net_bytes_recon=runtime.reconcile_net_bytes(sim, reqs, split),
         outcomes=split.outcomes)
+
+
+def compile_and_run(qid: str, catalog: Catalog, cfg: EngineConfig,
+                    fact_selectivity: Optional[float] = None,
+                    cost_based: bool = False) -> QueryRun:
+    """Compiler front door: logical-plan IR -> amenability split -> run,
+    i.e. ``run_query(compiler.compile_query(qid, fact_selectivity), ...)``.
+    The cost-based compiler (``cost_based=True``) is not ported yet."""
+    if cost_based:
+        raise NotImplementedError("the cost-based compiler is not ported "
+                                  "yet; compile_and_run pushes the maximal "
+                                  "frontier")
+    from repro_torch.compiler import compile_query  # deferred: a cycle
+    return run_query(compile_query(qid, fact_selectivity), catalog, cfg)
 
 
 def results_equal(a: ColumnTable, b: ColumnTable, tol: float = 1e-6) -> bool:

@@ -16,9 +16,20 @@ returns each partition's result and its §4.2 by-products (``aux``).
   ``fused_scan_agg`` launch for all the summed columns (up to its
   ``MAX_VALUES``; a counts-only plan takes one launch with none) applies
   the predicate and adds the kept rows into their groups in f64. Groups
-  no row kept are dropped. Keyless plans group by partition alone and keep the
+  no row kept are dropped. Pushed ``min``/``max`` reduce the kept rows
+  with ``scatter_reduce`` over the same ids; their predicate runs once,
+  through ``predicate_bitmap``, and the kernel then sums the kept rows
+  with no program. Keyless plans group by partition alone and keep the
   reference's one row per partition with its ``[0.]`` placeholder for a
   partition with no rows.
+- ``having`` plans filter the partial aggregate: the HAVING predicate
+  compiles to a program over the output's dtypes (int32 keys, f64 sums,
+  int64 counts) and ``predicate_bitmap`` evaluates it over the output
+  columns; the kept groups narrow each partition's output bounds.
+- ``top_k`` plans keep each partition's k best output rows: one stable
+  sort by value, one stable sort by partition, then each partition's first
+  k rows, best first and ties in row order, as ``operators.top_k`` gives
+  per partition.
 - ``bitmap_only`` plans add each partition's packed predicate words
   (``aux["bitmap"]``), cut from the batch's words (``partition_words``).
 - ``shuffle`` plans add each partition's per-target slices
@@ -30,10 +41,9 @@ returns each partition's result and its §4.2 by-products (``aux``).
   sort by ``(partition, target)`` makes each slice exactly the rows
   ``pid == target`` selects per partition, in the reference's row order.
 
-Output dtypes follow the reference (int32 keys, f64 sums, int64 counts),
-so the bytes a pushdown ships are the reference's. Plans with ``top_k``
-or ``having`` and pushed min/max aggregates are not ported yet and raise
-``NotImplementedError``.
+Output dtypes follow the reference (int32 keys, f64 sums, int64 counts,
+min/max in the column's type), so the bytes a pushdown ships are the
+reference's.
 """
 from __future__ import annotations
 
@@ -120,9 +130,16 @@ class CompiledPushPlan:
     #                                    when apply_bitmap replaces it)
     sel_fn: Optional[Callable]         # compiled selectivity estimator
     agg_spec: Dict[str, Tuple[str, str]]  # out -> (fn, col); {} if no agg
-    # the predicate's kernel program per tuple of predicate-column dtypes
+    having_sel_fn: Optional[Callable] = None  # the HAVING's estimator
+    # kernel programs of the predicate and the HAVING filter, per tuple of
+    # their columns' dtypes
     programs: Dict[tuple, Program] = dataclasses.field(default_factory=dict,
                                                        repr=False)
+
+    @property
+    def minmax(self) -> bool:
+        """The plan pushes a min or max aggregate."""
+        return any(f in ("min", "max") for f, _ in self.agg_spec.values())
 
     def program(self, cols: Dict[str, torch.Tensor]) -> Optional[Program]:
         """The predicate's postfix program for these columns, compiled at
@@ -130,10 +147,22 @@ class CompiledPushPlan:
         plan evaluates no predicate)."""
         if not self.pred_cols:
             return None
-        key = tuple(cols[c].dtype for c in self.pred_cols)
+        return self._program("predicate", self.plan.predicate,
+                             self.pred_cols, cols)
+
+    def having_program(self, cols: Dict[str, torch.Tensor]) -> Program:
+        """The HAVING filter's program over the partial aggregate's
+        output columns."""
+        names = tuple(sorted(ex.columns_of(self.plan.having)))
+        return self._program("having", self.plan.having, names, cols)
+
+    def _program(self, which: str, expr: ex.Expr, names: Tuple[str, ...],
+                 cols: Dict[str, torch.Tensor]) -> Program:
+        dtypes = tuple(cols[c].dtype for c in names)
+        key = (which,) + dtypes
         if key not in self.programs:
-            self.programs[key] = compile_program(
-                self.plan.predicate, dict(zip(self.pred_cols, key)))
+            self.programs[key] = compile_program(expr,
+                                                 dict(zip(names, dtypes)))
         return self.programs[key]
 
     def raw_projection(self, data: ColumnTable) -> ColumnTable:
@@ -144,7 +173,7 @@ class CompiledPushPlan:
                             if c in data.cols})
 
     def estimate_cost(self, part: Partition) -> RequestCost:
-        return estimate_cost(self.plan, part, self.sel_fn)
+        return estimate_cost(self.plan, part, self.sel_fn, self.having_sel_fn)
 
     def execute_batch_parts(self, tables: Sequence[ColumnTable],
                             bitmaps: Optional[Sequence[torch.Tensor]] = None
@@ -166,13 +195,14 @@ class CompiledPushPlan:
         per-partition aux dicts)."""
         plan = self.plan
         lens = [len(t) for t in tables]
+        n_parts = len(tables)
         present = [c for c in self.accessed if c in tables[0].cols]
         concatenated: Dict[str, torch.Tensor] = {}
 
         def concat(column: str) -> torch.Tensor:
             if column not in concatenated:
                 concatenated[column] = (
-                    tables[0].cols[column] if len(tables) == 1
+                    tables[0].cols[column] if n_parts == 1
                     else torch.cat([t.cols[column] for t in tables]))
             return concatenated[column]
 
@@ -180,11 +210,12 @@ class CompiledPushPlan:
         words = pids = keep = None
         prog = self.program({c: tables[0].cols[c] for c in self.pred_cols})
         if plan.apply_bitmap:
-            if bitmaps is None or len(bitmaps) != len(tables):
+            if bitmaps is None or len(bitmaps) != n_parts:
                 raise ValueError("an apply_bitmap plan needs one bitmap per "
                                  "partition")
             keep = unpack_parts(bitmaps, lens)
-        elif prog is not None and (plan.agg is None or plan.bitmap_only):
+        elif prog is not None and (plan.agg is None or plan.bitmap_only
+                                   or self.minmax):
             pcols = [concat(c) for c in prog.columns]
             key = plan.shuffle[0] if plan.shuffle is not None else None
             if (plan.agg is None and key is not None
@@ -193,12 +224,20 @@ class CompiledPushPlan:
                     prog, pcols, concat(key), plan.shuffle[1])
             else:
                 words = pbk.predicate_bitmap(prog, pcols)
-            if plan.agg is None:
+            if plan.agg is None or self.minmax:
                 keep = qops.unpack_bitmap(words, sum(lens))
 
+        part_of = None  # each output row's partition, where not contiguous
         if plan.agg is not None:
-            out, bounds = self._agg_batch(lens, {c: concat(c) for c in present},
-                                          prog, keep)
+            out, part_of = self._agg_batch(
+                lens, {c: concat(c) for c in present},
+                None if keep is not None else prog, keep)
+            if plan.having is not None:
+                hprog = self.having_program(out.cols)
+                kept = qops.unpack_bitmap(pbk.predicate_bitmap(
+                    hprog, [out.cols[c] for c in hprog.columns]), len(out))
+                idx = torch.nonzero(kept).flatten()
+                out, part_of = out.take(idx), part_of[idx]
         else:
             cols: Dict[str, torch.Tensor] = {}
             if keep is not None:
@@ -215,6 +254,18 @@ class CompiledPushPlan:
             for name, incols, fn in plan.derive:
                 cols[name] = fn(*[cols[c] for c in incols])
             out = ColumnTable({c: cols[c] for c in plan.columns if c in cols})
+
+        if plan.top_k is not None:
+            if part_of is None:
+                part_of = _segments(bounds, out.device)
+            idx = self._top_k_rows(out.cols[plan.top_k[0]], part_of, n_parts)
+            out, part_of = out.take(idx), part_of[idx]
+            if pids is not None:
+                pids = pids[idx]
+        if part_of is not None:
+            bounds = torch.searchsorted(
+                part_of, torch.arange(n_parts + 1,
+                                      device=part_of.device)).tolist()
 
         aux: List[Dict] = [{} for _ in tables]
         if plan.bitmap_only and words is not None:
@@ -234,9 +285,7 @@ class CompiledPushPlan:
             pids, _ = hpk.hash_partition(out.cols[key], n_t)
         n_parts = len(aux)
         dev = pids.device
-        seg = torch.repeat_interleave(torch.arange(n_parts, device=dev),
-                                      torch.as_tensor(np.diff(bounds),
-                                                      device=dev))
+        seg = _segments(bounds, dev)
         code, order = torch.sort(seg * n_t + pids, stable=True)
         sorted_cols = {c: v[order] for c, v in out.cols.items()}
         cuts = torch.searchsorted(
@@ -248,19 +297,31 @@ class CompiledPushPlan:
                 for i in range(n_t)]
             a["position_vector"] = pids[bounds[p]:bounds[p + 1]]
 
+    def _top_k_rows(self, v: torch.Tensor, part_of: torch.Tensor,
+                    n_parts: int) -> torch.Tensor:
+        """Indices of each partition's k best rows by ``v``, partition by
+        partition, best first, ties in row order."""
+        _col, k, ascending = self.plan.top_k
+        order = torch.sort(v, descending=not ascending, stable=True).indices
+        order = order[torch.sort(part_of[order], stable=True).indices]
+        seg = part_of[order]
+        starts = torch.searchsorted(
+            seg, torch.arange(n_parts + 1, device=seg.device))
+        rank = torch.arange(seg.shape[0], device=seg.device) - starts[seg]
+        return order[rank < k]
+
     def _agg_batch(self, lens: List[int], cols: Dict[str, torch.Tensor],
                    prog: Optional[Program], keep: Optional[torch.Tensor]
-                   ) -> Tuple[ColumnTable, List[int]]:
-        """Partial aggregates per partition. The kernel applies ``prog``;
-        rows an ``apply_bitmap`` plan's ``keep`` drops are gathered out
-        first."""
+                   ) -> Tuple[ColumnTable, torch.Tensor]:
+        """Partial aggregates per partition and each output row's
+        partition. The kernel applies ``prog``; rows a ``keep`` mask drops
+        (an ``apply_bitmap`` plan's, or the predicate's when min/max are
+        pushed) are gathered out first."""
         plan = self.plan
         keys = plan.agg[0]
         n_parts = len(lens)
         dev = next(iter(cols.values())).device
-        seg = torch.repeat_interleave(
-            torch.arange(n_parts, device=dev),
-            torch.as_tensor(lens, device=dev))
+        seg = _segments(np.cumsum([0] + lens), dev)
         if keep is not None:
             idx = torch.nonzero(keep).flatten()
             cols = {c: v[idx] for c, v in cols.items()}
@@ -281,57 +342,68 @@ class CompiledPushPlan:
                                            vals[i:i + fsa.MAX_VALUES], G)
             rows += list(s)
         by_col = dict(zip(summed, rows))
-        sums = {name: by_col[col] for name, (fn, col) in self.agg_spec.items()
-                if fn in ("sum", "mean")}
+        red = {}  # out -> per-group sum, min or max
+        for name, (fn, col) in self.agg_spec.items():
+            if fn in ("sum", "mean"):
+                red[name] = by_col[col]
+            elif fn in ("min", "max"):
+                v = cols[col]
+                red[name] = torch.empty(G, dtype=v.dtype, device=dev) \
+                    .scatter_reduce_(0, ids.to(torch.int64), v,
+                                     "amin" if fn == "min" else "amax",
+                                     include_self=False)
         if not keys:
-            return self._keyless(sums, counts), list(range(n_parts + 1))
+            return (self._keyless(red, counts),
+                    torch.arange(n_parts, device=dev))
         nz = torch.nonzero(counts).flatten()
         part_of, key_vals = decode(nz)
         out = dict(zip(keys, key_vals))
         cnt = counts[nz]
         for name, (fn, _col) in self.agg_spec.items():
-            out[name] = (cnt if fn == "count" else sums[name][nz] if fn == "sum"
-                         else sums[name][nz] / torch.clamp(cnt, min=1))
-        bounds = torch.searchsorted(
-            part_of, torch.arange(n_parts + 1, device=dev)).tolist()
-        return ColumnTable(out), bounds
+            out[name] = (cnt if fn == "count"
+                         else red[name][nz] / torch.clamp(cnt, min=1)
+                         if fn == "mean" else red[name][nz])
+        return ColumnTable(out), part_of
 
-    def _keyless(self, sums: Dict[str, torch.Tensor], counts: torch.Tensor
+    def _keyless(self, red: Dict[str, torch.Tensor], counts: torch.Tensor
                  ) -> ColumnTable:
         """One row per partition; a partition with no kept rows gets the
         reference's float64 ``0.`` placeholder in every column (which makes
-        a count column float64, as numpy's concatenation does)."""
+        every column float64, as numpy's concatenation does)."""
         empty = counts == 0
         any_empty = bool(empty.any())
         out = {}
         for name, (fn, _col) in self.agg_spec.items():
-            if fn == "count":
-                v = counts.to(torch.float64) if any_empty else counts
-            elif fn == "sum":
-                v = sums[name]
-            else:
-                v = sums[name] / torch.clamp(counts, min=1)
-            out[name] = torch.where(empty, torch.zeros((), dtype=v.dtype,
-                                                       device=v.device), v)
+            v = (counts if fn == "count"
+                 else red[name] / torch.clamp(counts, min=1) if fn == "mean"
+                 else red[name])
+            if any_empty:
+                v = torch.where(empty, torch.zeros((), dtype=torch.float64,
+                                                   device=v.device),
+                                v.to(torch.float64))
+            out[name] = v
         return ColumnTable(out)
 
 
-_UNSUPPORTED = ("top_k", "having")
+def _segments(bounds: Sequence[int], device) -> torch.Tensor:
+    """Each row's segment, for rows cut at ``bounds`` (n + 1 offsets)."""
+    sizes = torch.as_tensor(np.diff(bounds), device=device)
+    return torch.repeat_interleave(
+        torch.arange(sizes.shape[0], device=device), sizes)
+
+
+AGG_FNS = ("sum", "count", "mean", "min", "max")
 
 
 def compile_push_plan(plan: PushPlan) -> CompiledPushPlan:
     """Lower a PushPlan once per (query, table)."""
-    used = [f for f in _UNSUPPORTED if getattr(plan, f) not in (None, False)]
-    if used:
-        raise NotImplementedError(f"PushPlan {', '.join(used)} is not "
-                                  f"ported yet")
     if not plan.columns and plan.agg is None:
         raise ValueError("plans must declare output columns")
     agg_spec = ({o: (f, c) for o, f, c in plan.agg[1]}
                 if plan.agg is not None else {})
-    if any(f not in ("sum", "count", "mean") for f, _ in agg_spec.values()):
-        raise NotImplementedError("pushed min/max aggregates are not "
-                                  "ported yet")
+    bad = sorted({f for f, _ in agg_spec.values() if f not in AGG_FNS})
+    if bad:
+        raise ValueError(f"unknown aggregate functions {bad}")
     return CompiledPushPlan(
         plan=plan, accessed=plan.accessed_columns(),
         pred_cols=(tuple(sorted(ex.columns_of(plan.predicate)))
@@ -339,4 +411,6 @@ def compile_push_plan(plan: PushPlan) -> CompiledPushPlan:
                    else ()),
         sel_fn=(ex.compile_selectivity(plan.predicate)
                 if plan.predicate is not None else None),
-        agg_spec=agg_spec)
+        agg_spec=agg_spec,
+        having_sel_fn=(ex.compile_selectivity(plan.having)
+                       if plan.having is not None else None))

@@ -1,15 +1,16 @@
 """Pushable sub-plans and their per-partition request cost.
 
 Port of ``repro.core.plan`` (``PushPlan``, ``accessed_columns``,
-``plan_signature``, ``estimate_cost``). A ``PushPlan`` is the paper's
-pushdown-amenable operator set for one table: projection, selection,
-derived columns, partial grouped/scalar aggregation — plus the fields the
-later slices execute (top-k, shuffle, selection bitmaps, having).
+``plan_signature``, ``batchable_stages``, ``estimate_cost``). A
+``PushPlan`` is the paper's pushdown-amenable operator set for one table:
+projection, selection, derived columns, partial grouped/scalar
+aggregation, HAVING over it, top-k, and the §4.2 shuffle and selection
+bitmaps.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from repro_torch.core.cost import RequestCost
 from repro_torch.queryproc import expressions as ex
@@ -72,15 +73,42 @@ def plan_signature(plan: PushPlan, shuffle_key: Optional[str] = None) -> str:
     return "+".join(stages)
 
 
+def batchable_stages(plan: PushPlan, shuffle_key: Optional[str] = None
+                     ) -> Tuple[str, ...]:
+    """The stages of this frontier the batch executor (``core.executor``)
+    runs in its one device pass, the §4.2 by-products (bitmap emission,
+    shuffle partitioning) included."""
+    stages: List[str] = []
+    if plan.apply_bitmap:
+        stages.append("apply_bitmap")
+    elif plan.predicate is not None:
+        stages.append("filter")
+        if plan.bitmap_only:
+            stages.append("bitmap")
+    if plan.derive:
+        stages.append("derive")
+    if plan.agg is not None:
+        stages.append("agg")
+        if plan.having is not None:
+            stages.append("having")
+    if plan.top_k is not None:
+        stages.append("topk")
+    if plan.shuffle is not None or shuffle_key is not None:
+        stages.append("shuffle")
+    return tuple(stages)
+
+
 _AGG_OUT_ROWS = 4096  # conservative group-count cap for partial aggs
 
 
 def estimate_cost(plan: PushPlan, part: Partition,
-                  sel_fn: Optional[Callable] = None) -> RequestCost:
+                  sel_fn: Optional[Callable] = None,
+                  having_sel_fn: Optional[Callable] = None) -> RequestCost:
     """Static byte estimates for the §3.3 cost model (cardinality
     estimation from per-column stats — the paper's S_out source).
-    ``sel_fn`` is the predicate's ``compile_selectivity`` closure, when the
-    caller compiled it once for all partitions."""
+    ``sel_fn`` and ``having_sel_fn`` are the predicate's and the HAVING
+    filter's ``compile_selectivity`` closures, when the caller compiled
+    them once for all partitions."""
     data = part.data
     stats = data.stats()
     acc_cols = [c for c in plan.accessed_columns() if c in data.cols]
@@ -105,7 +133,9 @@ def estimate_cost(plan: PushPlan, part: Partition,
             groups *= max(1, stats[k].ndv if k in stats else _AGG_OUT_ROWS)
         groups = min(groups, _AGG_OUT_ROWS, len(data))
         s_out = groups * 8 * (len(keys) + len(aggs))
-        if plan.having is not None:
+        if having_sel_fn is not None:
+            s_out *= having_sel_fn(stats)
+        elif plan.having is not None:
             s_out *= ex.estimate_selectivity(plan.having, stats)
     else:
         out_cols = [c for c in plan.columns if c in data.cols]

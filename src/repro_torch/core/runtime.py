@@ -29,8 +29,10 @@ from repro_torch.queryproc.table import ColumnTable
 
 
 def run_residual(query, merged: Dict[str, ColumnTable]) -> ColumnTable:
-    """The query's ``compute`` residual over the merged per-table results
-    (the interpreter branch of the reference's ``run_residual``)."""
+    """The query's residual over the merged per-table results: the
+    interpreter branch of the reference's ``run_residual``. A compiled
+    query's ``compute`` interprets its ``residual`` IR
+    (``compiler.interpreter``); a hand-built one runs its own closure."""
     return query.compute(merged)
 
 

@@ -10,7 +10,7 @@ dates are int days since 1992-01-01.
 from __future__ import annotations
 
 import datetime
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -105,9 +105,11 @@ def generate_tables(sf: float = 1.0, seed: int = 0
 
 
 def build_catalog(sf: float = 1.0, seed: int = 0, num_nodes: int = 1,
-                  rows_per_partition: int = 6_000, device=None) -> Catalog:
+                  rows_per_partition: int = 6_000, device=None,
+                  cluster: Optional[Dict[str, str]] = None) -> Catalog:
     """The reference's partitioning: ``lineitem`` in ``rows_per_partition``
     rows (~10*sf requests per query), dimension tables in 4 objects per
-    node."""
+    node; ``cluster`` maps table -> cluster key (e.g. ``{"lineitem":
+    "l_orderkey"}``, which unlocks storage-side HAVING on Q18)."""
     return catalog_from_arrays(generate_tables(sf, seed), num_nodes,
-                               rows_per_partition, device)
+                               rows_per_partition, device, cluster)

@@ -2,7 +2,10 @@
 
 Port of ``repro.storage.catalog``. Each column of a table is one device
 tensor; a partition's columns are views ``v[lo:hi]`` of it, placed
-round-robin over the storage nodes.
+round-robin over the storage nodes. A table may be clustered by a key: it
+is stably sorted by it and every partition ends at the end of a run of the
+key, so no key value straddles two partitions (the group-locality that
+makes storage-side HAVING over partial aggregates sound).
 """
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import dataclasses
 from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.queryproc.table import ColumnTable
@@ -37,6 +41,9 @@ class Catalog:
         self.nodes: List[StorageNode] = [StorageNode(i)
                                          for i in range(num_nodes)]
         self.tables: Dict[str, List[Partition]] = {}
+        # table -> cluster key: partition boundaries are aligned to runs of
+        # this key, so every key value lies wholly inside one partition
+        self.clustered: Dict[str, str] = {}
 
     @property
     def num_nodes(self) -> int:
@@ -44,16 +51,35 @@ class Catalog:
 
     def add_table(self, name: str,
                   data: Union[ColumnTable, Dict[str, np.ndarray]],
-                  rows_per_partition: int) -> None:
+                  rows_per_partition: int,
+                  cluster_key: Optional[str] = None) -> None:
         """Shard ``data`` into fixed-row partitions (views of one device
-        tensor per column); numpy columns are copied to the device once."""
+        tensor per column); numpy columns are copied to the device once.
+
+        With ``cluster_key`` the table is first stably sorted by that key,
+        and each partition boundary is pushed forward to the end of the
+        key run it lands in: partitions stay about ``rows_per_partition``
+        rows, but no key value straddles two partitions."""
         if not isinstance(data, ColumnTable):
             data = ColumnTable.from_numpy(data, self.device)
         n = len(data)
-        num_parts = max(1, -(-n // rows_per_partition))
+        if cluster_key is not None:
+            key, order = torch.sort(data.cols[cluster_key], stable=True)
+            data = ColumnTable({k: key if k == cluster_key else v[order]
+                                for k, v in data.cols.items()})
+            self.clustered[name] = cluster_key
+            bounds = [0]
+            while bounds[-1] < n:
+                j = min(n, bounds[-1] + rows_per_partition)
+                if j < n:  # to the end of the run of key[j - 1]
+                    j = int(torch.searchsorted(key, key[j - 1:j],
+                                               right=True))
+                bounds.append(j)
+        else:
+            bounds = [min(n, i * rows_per_partition) for i in
+                      range(max(1, -(-n // rows_per_partition)) + 1)]
         parts: List[Partition] = []
-        for i in range(num_parts):
-            lo, hi = i * rows_per_partition, min(n, (i + 1) * rows_per_partition)
+        for i, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
             chunk = ColumnTable({k: v[lo:hi] for k, v in data.cols.items()})
             node = self.nodes[i % self.num_nodes]
             part = Partition(name, i, node.node_id, chunk)
@@ -78,14 +104,17 @@ class Catalog:
 
 def catalog_from_arrays(tables: Dict[str, Dict[str, np.ndarray]],
                         num_nodes: int = 1, rows_per_partition: int = 6_000,
-                        device=None) -> Catalog:
+                        device=None,
+                        cluster: Optional[Dict[str, str]] = None) -> Catalog:
     """A catalog over numpy tables, partitioned as the reference's
     ``tpch.build_catalog`` does: ``lineitem`` in ``rows_per_partition``
-    rows, every other table in ``num_nodes * 4`` objects."""
+    rows, every other table in ``num_nodes * 4`` objects. ``cluster`` maps
+    table -> cluster key (``Catalog.add_table(cluster_key=)``)."""
     cat = Catalog(num_nodes, device)
+    cluster = cluster or {}
     for name, cols in tables.items():
         n = len(next(iter(cols.values())))
         rpp = rows_per_partition if name == "lineitem" else max(
             n // max(1, num_nodes * 4), 1)
-        cat.add_table(name, cols, rpp)
+        cat.add_table(name, cols, rpp, cluster_key=cluster.get(name))
     return cat

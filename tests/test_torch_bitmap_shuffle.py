@@ -83,7 +83,7 @@ def _parts(cat, table):
 def _fig3_request(qid, E):
     """``benchmarks/bitmap_storage.py``'s ``bitmap_plan`` columns and its
     ``_cache_outputs_only`` cache: (predicate, uncached, cached)."""
-    plan = (queries.build_query(qid) if E is tex
+    plan = (queries.build_query_legacy(qid) if E is tex
             else rqueries.build_query_legacy(qid)).plans["lineitem"]
     derived = {n for n, _, _ in plan.derive}
     cols = [c for c in plan.accessed_columns() if c not in derived]
@@ -196,9 +196,9 @@ def test_q1_pushed_aggregate_matches_reference(catalog, ref_catalog):
                               reng.EngineConfig(
                                   res=RResources(storage_power=power),
                                   mode=mode, measured_feedback=False))
-        got = run_query(queries.build_query("Q1"), catalog, EngineConfig(
-            res=StorageResources(storage_power=power), mode=mode,
-            device="cpu"))
+        got = run_query(queries.build_query_legacy("Q1"), catalog,
+                        EngineConfig(res=StorageResources(storage_power=power),
+                                     mode=mode, device="cpu"))
         assert reng.results_equal(RTable(got.result.to_numpy()), want.result)
         assert got.sim.decisions() == want.sim.decisions()
         assert got.real_net_bytes == want.real_net_bytes
@@ -215,7 +215,7 @@ def test_compute_side_apply_batched_matches_reference(table, qid, catalog,
                      if c not in derived and c not in pred_cols)
     rparts = _parts(ref_catalog, table)
     rwords = [rops.selection_bitmap(p, plan.predicate) for p in rparts]
-    tpred = queries.build_query(qid).plans[table].predicate
+    tpred = queries.build_query_legacy(qid).plans[table].predicate
     words = [tops.selection_bitmap(p, tpred) for p in _parts(catalog, table)]
     for w, rw in zip(words, rwords):
         _assert_words(w, rw, qid)
@@ -254,7 +254,7 @@ CACHES = ("outputs", "predicates")
 
 
 def _cache(kind, qid, module, E):
-    plan = (queries.build_query(qid) if module is bitmap
+    plan = (queries.build_query_legacy(qid) if module is bitmap
             else rqueries.build_query_legacy(qid)).plans["lineitem"]
     cache = module.CacheState()
     if kind == "predicates":
@@ -267,7 +267,7 @@ def _cache(kind, qid, module, E):
 @pytest.mark.parametrize("kind", CACHES)
 @pytest.mark.parametrize("qid", BITMAP_QUERIES)
 def test_rewrite_all_matches_reference(qid, kind, catalog, ref_catalog):
-    reqs = plan_requests(queries.build_query(qid), catalog)
+    reqs = plan_requests(queries.build_query_legacy(qid), catalog)
     rreqs = reng.plan_requests(rqueries.build_query_legacy(qid), ref_catalog)
     got, met = bitmap.rewrite_all(reqs, _cache(kind, qid, bitmap, tex))
     want, rmet = rbitmap.rewrite_all(rreqs, _cache(kind, qid, rbitmap, rex))
@@ -288,7 +288,7 @@ def test_run_query_with_rewritten_requests_matches_reference(
     want = reng.run_query(rq, ref_catalog, reng.EngineConfig(
         res=RResources(storage_power=1.0), mode="eager",
         measured_feedback=False), requests=rreqs)
-    tq = queries.build_query(qid)
+    tq = queries.build_query_legacy(qid)
     reqs, _ = bitmap.rewrite_all(plan_requests(tq, catalog),
                                  _cache(kind, qid, bitmap, tex))
     got = run_query(tq, catalog, EngineConfig(mode="eager", device="cpu"),
@@ -364,7 +364,7 @@ def _shuffle_plan(q, table, n):
 def test_query_shuffle_plans_match_reference(qid, catalog, ref_catalog):
     """Filtered plans take ``fused_scan_shuffle``'s path, unfiltered ones
     ``hash_partition``'s: results, slices and position vectors bitwise."""
-    tq, rq = queries.build_query(qid), rqueries.build_query_legacy(qid)
+    tq, rq = queries.build_query_legacy(qid), rqueries.build_query_legacy(qid)
     assert tq.shuffle_keys == rq.shuffle_keys
     for table in tq.shuffle_keys:
         plan, rplan = _shuffle_plan(tq, table, 4), _shuffle_plan(rq, table, 4)
@@ -417,7 +417,7 @@ def test_apply_position_vector_matches_reference(seed, n_targets, dtype):
 @pytest.mark.parametrize("pushdown", (False, True))
 @pytest.mark.parametrize("qid", queries.QUERY_IDS)
 def test_run_shuffle_matches_reference(qid, pushdown, catalog, ref_catalog):
-    got = shuffle.run_shuffle(queries.build_query(qid), catalog,
+    got = shuffle.run_shuffle(queries.build_query_legacy(qid), catalog,
                               EngineConfig(mode="eager", device="cpu"),
                               shuffle.ShuffleConfig(), pushdown)
     want = rshuffle.run_shuffle(

@@ -243,6 +243,83 @@ def test_fused_scan_agg_takes_at_most_max_values(cuda):
         fsa.fused_scan_agg(None, (), ids, vals, 4)  # a tensor, not a list
 
 
+@pytest.mark.parametrize("G", (1_500_000, 6_000_000))
+def test_fused_scan_agg_without_a_predicate_at_millions_of_groups(cuda, G):
+    """Q18's pushed aggregate: no predicate (``prog=None``), one f64 value
+    and about a row a group, so the partials live in global memory."""
+    R = 6_000_011
+    rng = np.random.default_rng(G)
+    ids = torch.from_numpy(rng.integers(0, G, R, np.int32)).to(cuda)
+    values = [torch.from_numpy(rng.integers(1, 51, R).astype(np.float64))
+              .to(cuda)]
+    _check_agg(None, (), ids, values, G)
+    _check_agg(None, (), ids, [], G)
+
+
+def test_having_program_over_agg_outputs_matches_plain(cuda):
+    """A HAVING predicate over a partial aggregate's output dtypes (int32
+    keys, f64 sums, int64 counts) through ``predicate_bitmap``."""
+    R = 1_000_003
+    rng = np.random.default_rng(7)
+    cols = {"k": torch.from_numpy(rng.integers(0, 10**6, R, np.int32)),
+            "sum_qty": torch.from_numpy(rng.integers(1, 400, R)
+                                        .astype(np.float64)),
+            "n": torch.from_numpy(rng.integers(1, 8, R).astype(np.int64))}
+    exprs = (Col("sum_qty") > 150.0, (Col("sum_qty") > 150.0) & (Col("n") >= 3),
+             (Col("n") < 2) | (Col("k").isin((5, 9, 77)) & (Col("sum_qty") <= 10)),
+             Col("sum_qty") > Col("n"))
+    gcols = {c: v.to(cuda) for c, v in cols.items()}
+    for expr in exprs:
+        prog = program_for(expr, gcols)
+        words = pb.predicate_bitmap(prog, [gcols[c] for c in prog.columns])
+        plain = ref.predicate_bitmap(prog, [cols[c] for c in prog.columns])
+        assert torch.equal(words.cpu(), plain), expr
+
+
+def test_pushed_having_top_k_and_min_max_on_the_card_match_the_cpu(cuda):
+    """The executor's three compiler stages on the card, bitwise against
+    the CPU (sums at rtol=1e-9): HAVING on lineitem clustered by
+    ``l_orderkey`` (Q18's frontier), a segmented top-k with ties
+    (``l_partkey`` takes 400 values) and with none, and min/max beside a
+    sum and a count."""
+    from repro_torch.compiler import compile_ir, compile_query_detailed, ir
+    cats = [tpch.build_catalog(sf=2.0, seed=1, num_nodes=2,
+                               rows_per_partition=3000, device=d,
+                               cluster={"lineitem": "l_orderkey"})
+            for d in (cuda, "cpu")]
+    q18 = compile_ir(compile_query_detailed("Q18").root, "Q18",
+                     clustered=cats[0].clustered)
+    plans = [q18.plans["lineitem"]]
+    assert plans[0].having is not None
+    scan = ir.Filter(ir.Scan("lineitem", ("l_orderkey", "l_partkey",
+                                          "l_extendedprice")),
+                     Col("l_shipdate") < 1500)
+    for col in ("l_partkey", "l_extendedprice"):
+        plans.append(compile_ir(ir.TopK(scan, col, 25)).plans["lineitem"])
+    plans.append(compile_ir(ir.Aggregate(scan, ("l_returnflag",), (
+        ("lo", "min", "l_extendedprice"), ("hi", "max", "l_partkey"),
+        ("s", "sum", "l_extendedprice"), ("n", "count", "")))).plans[
+            "lineitem"])
+    assert plans[1].top_k and plans[3].agg
+    for plan in plans:
+        kernels.reset_launches()
+        got, _ = compile_push_plan(plan).execute_batch_parts(
+            [p.data for p in cats[0].partitions_of("lineitem")])
+        assert sum(kernels.launches().values()) > 0
+        want, _ = compile_push_plan(plan).execute_batch_parts(
+            [p.data for p in cats[1].partitions_of("lineitem")])
+        assert sum(len(w) for w in want) > 0
+        for g, w in zip(got, want):
+            assert list(g.cols) == list(w.cols)
+            for c, v in w.cols.items():
+                x = g.cols[c].cpu()
+                assert x.dtype == v.dtype
+                if c == "s" or (c == "sum_qty" and v.is_floating_point()):
+                    torch.testing.assert_close(x, v, rtol=SUM_RTOL, atol=0)
+                else:
+                    assert torch.equal(_bits(x), _bits(v)), (plan, c)
+
+
 @pytest.mark.parametrize("G", (6, 3072, 120_000))
 @pytest.mark.parametrize("R", ROWS)
 def test_grouped_agg_matches_plain(cuda, R, G):
@@ -413,18 +490,21 @@ def catalogs(cuda):
 
 @pytest.mark.parametrize("qid", queries.QUERY_IDS)
 def test_engine_on_the_card_matches_the_cpu(cuda, catalogs, qid):
+    """The compiled query and the hand-built one, on the card as on the
+    CPU."""
     gpu, cpu = catalogs
-    for power in (1.0, 0.1):
-        res = StorageResources(storage_power=power)
-        kernels.reset_launches()
-        g = run_query(queries.build_query(qid), gpu,
-                      EngineConfig(res=res, mode="adaptive", device=cuda))
-        assert sum(kernels.launches().values()) > 0
-        c = run_query(queries.build_query(qid), cpu,
-                      EngineConfig(res=res, mode="adaptive", device="cpu"))
-        assert results_equal(g.result, c.result)
-        assert g.sim.decisions() == c.sim.decisions()
-        assert g.real_net_bytes == c.real_net_bytes
+    for build in (queries.build_query, queries.build_query_legacy):
+        for power in (1.0, 0.1):
+            res = StorageResources(storage_power=power)
+            kernels.reset_launches()
+            g = run_query(build(qid), gpu,
+                          EngineConfig(res=res, mode="adaptive", device=cuda))
+            assert sum(kernels.launches().values()) > 0
+            c = run_query(build(qid), cpu,
+                          EngineConfig(res=res, mode="adaptive", device="cpu"))
+            assert results_equal(g.result, c.result)
+            assert g.sim.decisions() == c.sim.decisions()
+            assert g.real_net_bytes == c.real_net_bytes
 
 
 def _to_cpu(t):

@@ -1,11 +1,12 @@
 """The port's engine end to end against the JAX package's, on the CPU.
 
-Q1, Q3, Q6, Q12 and Q19 run through ``repro_torch.core.engine.run_query``
-in all four modes at storage_power 1.0 and 0.1, over a catalog made by the
-port's generator and over one fed the reference's arrays through
-``catalog_from_arrays``. The reference runs the same hand-built queries
-(``build_query_legacy``) with ``measured_feedback=False``, so no gauge left
-by another test can move its decisions. The result must equal the
+The fifteen hand-built TPC-H queries (``build_query_legacy`` on both
+sides) run through ``repro_torch.core.engine.run_query`` in all four modes
+at storage_power 1.0 and 0.1, over a catalog made by the port's generator
+and over one fed the reference's arrays through ``catalog_from_arrays``.
+The reference runs with ``measured_feedback=False``, so no gauge left by
+another test can move its decisions (``test_torch_compiler.py`` holds the
+compiled queries the same way). The result must equal the
 reference's under ``repro.core.engine.results_equal``; the decision vector,
 the simulated and the real bytes must be identical.
 """
@@ -67,7 +68,7 @@ def ref_runs(ref_catalog):
 def test_query_matches_reference(qid, mode, power, source, catalogs,
                                  ref_runs):
     want = ref_runs(qid, mode, power)
-    got = run_query(queries.build_query(qid), catalogs[source],
+    got = run_query(queries.build_query_legacy(qid), catalogs[source],
                     EngineConfig(res=StorageResources(storage_power=power),
                                  mode=mode, device="cpu"))
     assert reng.results_equal(RTable(got.result.to_numpy()), want.result)
@@ -88,7 +89,8 @@ def test_plans_cost_and_sign_as_the_reference(qid, catalogs, ref_catalog):
     from repro.core.plan import plan_signature as r_signature
     from repro_torch.core.executor import compile_push_plan
     from repro_torch.core.plan import estimate_cost, plan_signature
-    tq, rq = queries.build_query(qid), rqueries.build_query_legacy(qid)
+    tq, rq = (queries.build_query_legacy(qid),
+              rqueries.build_query_legacy(qid))
     for table, plan in tq.plans.items():
         rplan = rq.plans[table]
         assert plan_signature(plan) == r_signature(rplan)
@@ -126,24 +128,44 @@ def test_any_decision_vector_merges_to_the_all_pushdown_tables(qid, catalogs):
 
 
 @pytest.mark.parametrize("plan_field, value", (
-        ("top_k", ("l_orderkey", 10, False)), ("having", None),
+        ("top_k", ("revenue", 10, False)), ("having", None),
         ("shuffle", ("l_orderkey", 4)), ("bitmap_only", True),
         ("apply_bitmap", True)))
-def test_plans_of_later_slices_raise(plan_field, value, catalogs):
-    """``top_k`` and ``having`` plans are not ported yet and raise; the §4.2
-    fields, ported since, compile and run, and yield their by-products."""
+def test_plans_of_later_slices_raise(plan_field, value, catalogs,
+                                     ref_catalog):
+    """The PushPlan fields of the later slices compile and run: ``top_k``
+    and ``having`` (on Q3's lineitem plan made to aggregate by
+    ``l_orderkey``) give each partition the reference executor's output;
+    the §4.2 fields yield their by-products."""
+    from repro.core.executor import compile_push_plan as r_compile
+    from repro.queryproc.expressions import Col as RCol
     from repro_torch.core.executor import compile_push_plan
     from repro_torch.queryproc import operators as ops
     from repro_torch.queryproc.expressions import Col
-    if plan_field == "having":
-        value = Col("sum_qty") > 1
-    plan = dataclasses.replace(queries.build_query("Q3").plans["lineitem"],
-                               **{plan_field: value})
-    if plan_field in ("top_k", "having"):
-        with pytest.raises(NotImplementedError):
-            compile_push_plan(plan)
-        return
+    plans = [q.plans["lineitem"] for q in (
+        queries.build_query_legacy("Q3"), rqueries.build_query_legacy("Q3"))]
     parts = [p.data for p in catalogs["from_arrays"].partitions_of("lineitem")]
+    if plan_field in ("top_k", "having"):
+        if plan_field == "having":
+            agg = (("l_orderkey",), (("sum_qty", "sum", "l_quantity"),
+                                     ("n", "count", "")))
+            plans = [dataclasses.replace(p, agg=agg, having=(C("sum_qty") > 60)
+                                         & (C("n") >= 2))
+                     for p, C in zip(plans, (Col, RCol))]
+        else:
+            plans = [dataclasses.replace(p, top_k=value) for p in plans]
+        got, _ = compile_push_plan(plans[0]).execute_batch_parts(parts)
+        want, _ = r_compile(plans[1]).execute_batch_parts(
+            [p.data for p in ref_catalog.partitions_of("lineitem")])
+        assert sum(len(g) for g in got) > 0
+        for g, w in zip(got, want):
+            assert list(g.cols) == list(w.columns)
+            for c, v in w.cols.items():
+                assert g.cols[c].numpy().dtype == v.dtype
+                np.testing.assert_allclose(g.cols[c].numpy(), v, rtol=1e-12,
+                                           atol=0)
+        return
+    plan = dataclasses.replace(plans[0], **{plan_field: value})
     bitmaps = ([ops.selection_bitmap(p, Col("l_quantity") < 10) for p in parts]
                if plan_field == "apply_bitmap" else None)
     tables, aux = compile_push_plan(plan).execute_batch_parts(parts, bitmaps)

@@ -137,8 +137,10 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_chip_smoke_phases_run_on_the_cpu():
     """The script's checks at a small size through the plain versions: sf=10
     with 6000-row partitions has the card run's 100 lineitem partitions over
-    4 nodes, so the power-0.1 split check is exercised too, and the §4.2
-    phase cuts every partition's words out of unaligned batch words."""
+    4 nodes, so the power-0.1 split check is exercised too, the compiler
+    phase runs Q18's HAVING on a second catalog clustered by l_orderkey, and
+    the §4.2 phase cuts every partition's words out of unaligned batch
+    words."""
     import importlib.util
     import time
     from repro_torch.queryproc import tpch
@@ -166,6 +168,12 @@ def test_chip_smoke_phases_run_on_the_cpu():
     # CPU tensors run the plain versions, which count no launch
     zero = dict.fromkeys(records, 0)
     assert smoke.engine_phase(cat, lambda: None) == zero
+    ccat = tpch.build_catalog(sf=10, num_nodes=4, rows_per_partition=6000,
+                              device="cpu", cluster=smoke.CLUSTER)
+    launches, having = smoke.compiler_phase(cat, ccat, host_ms, lambda: None)
+    assert launches == zero
+    assert having["name"] == "predicate_bitmap"
+    assert having["bound_by"] == "bytes" and having["bound_ms"] > 0
     assert smoke.section42_phase(cat, lambda: None) == zero
 
 
