@@ -24,7 +24,11 @@ GPU is present. Phases:
    three shapes (Q3's residual, 60M random ids over the same groups, Q18's
    group-by of lineitem by ``l_orderkey``) and prints the regime that
    ``grouped_agg.plan`` picks for each (``profile_kernels.py`` times the
-   other regimes).
+   other regimes). A 512-value ``In`` over all of ``l_partkey`` (pooled:
+   a sorted list on the card that each row binary-searches) runs through
+   ``predicate_bitmap``, ``fused_scan_agg`` and ``fused_scan_shuffle``,
+   and a nine-column AND (two programs) through the executor's split
+   route.
 3. Engine: builds the TPC-H catalog at ``SF`` = 1000 (TPC-H SF10's row
    counts: 60M lineitem rows in 100 partitions over 4 storage nodes)
    on the card and runs all 15 queries through
@@ -36,7 +40,15 @@ GPU is present. Phases:
    at power 0.1 Q1 and Q3 must split between pushdown and pushback; the
    splits and bytes of Q1, Q3, Q6, Q12 and Q19 are compared with the hand-
    built plans' (``PR14_ADAPTIVE_LOW``).
-4. Compiler: a second catalog from the same arrays, lineitem clustered by
+4. Costed: every query through ``compile_and_run(cost_based=True)`` in
+   the same four configurations, each equal to its maximal-frontier
+   result, with each table's chosen and maximal cut, scores, bitmap
+   exchange and lowered predicate; the ``CardinalityCorrector`` learning
+   from Q18 and Q4 run eager twice, and Q18's lineitem cut before and
+   after it; all 15 queries through ``run_concurrent`` in adaptive_pa at
+   power 0.1; each query's oracle splits (``theoretical_split``,
+   ``optimum.simulated_optimum``, Eq 6) at power 0.1 beside adaptive's.
+5. Compiler: a second catalog from the same arrays, lineitem clustered by
    ``l_orderkey``. Q18 compiled for it pushes its HAVING and must equal
    Q18 on the first catalog; a custom IR's ``TopK`` absorbed over a
    filtered lineitem scan must equal ``torch.topk`` over the whole table;
@@ -44,7 +56,7 @@ GPU is present. Phases:
    over the whole table. ``predicate_bitmap`` is timed on the HAVING
    program over the clustered partial aggregate. The catalog is dropped
    before the next phase.
-5. §4.2 operators on the first catalog: the Fig-3 storage-side bitmap with
+6. §4.2 operators on the first catalog: the Fig-3 storage-side bitmap with
    the cached columns masked by ``bitmap_apply``, the Fig-4 compute-side
    bitmap, the storage-side shuffle of lineitem and orders against the
    compute-side one, the shuffle plans of Q3, Q12 and Q19 with their
@@ -52,7 +64,7 @@ GPU is present. Phases:
    with shuffle pushdown. Every result is held to the plain operators,
    bitwise. The host-clock time of each ``apply_bitmap_to_cache`` call is
    printed alone (until it returns, and until the card is done).
-6. Prints each kernel's launches in phases 3 to 5 (all must be above 0),
+7. Prints each kernel's launches in phases 3 to 6 (all must be above 0),
    the per-kernel JSON line and, last, the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -91,6 +103,8 @@ PR14_ADAPTIVE_LOW = {"Q1": (36, 64, 599_001_920), "Q3": (60, 72, 865_100_164),
 CLUSTER = {"lineitem": "l_orderkey"}
 NODES, RPP = 4, 600_000       # storage nodes; rows of a lineitem partition
 SHUFFLE_TARGETS = 4           # compute nodes of the §4.2 shuffle
+POOLED_VALUES = 512           # multitable.DOMAIN_MAX_VALUES, the longest
+#                               In list the cost-based lowering makes
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "fused_scan_agg": "src/repro/kernels/fused_scan_agg.py:56",
             "grouped_agg": "src/repro/kernels/grouped_agg.py:48",
@@ -182,7 +196,7 @@ def kernel_phase(cat, timer):
     need = sorted(set().union(*(columns_of(p.predicate)
                                 for p in li_plans.values()))
                   | {"l_returnflag", "l_linestatus", "l_extendedprice",
-                     "l_discount", "l_tax", "l_orderkey"})
+                     "l_discount", "l_tax", "l_orderkey", "l_partkey"})
     li = cat.scan_table("lineitem", need).cols
     R = li["l_shipdate"].shape[0]
     records, lines = {}, []
@@ -427,7 +441,122 @@ def kernel_phase(cat, timer):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"Q19 lineitem predicate, key l_orderkey, R={R}, P={P}, "
               f"kept={int(out[2].sum())}")
+    del out, plain
+    lines += pooled_in_records(li, seg, n_parts, timer)
+    split_route_check(cat)
     return records, lines
+
+
+def pooled_in_records(li, seg, n_parts, timer):
+    """A 512-value ``In`` (pooled: a sorted list on the card that each row
+    binary-searches) over all of ``l_partkey`` through the three kernels
+    that interpret a program, each held to its plain version."""
+    from repro_torch.kernels import fused_scan_agg as fsa
+    from repro_torch.kernels import fused_scan_shuffle as fss
+    from repro_torch.kernels import predicate_bitmap as pb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+    from repro_torch.queryproc.expressions import Col
+
+    col = li["l_partkey"]
+    R = col.shape[0]
+    gen = torch.Generator().manual_seed(512)
+    hi = int(col.max()) + 1
+    vals = tuple(torch.randperm(hi, generator=gen)[:POOLED_VALUES].tolist())
+    prog = program_for(Col("l_partkey").isin(vals), {"l_partkey": col})
+    check(len(prog.pool) == POOLED_VALUES, "512-value In: not pooled")
+    steps = POOLED_VALUES.bit_length()  # compares of the binary search
+    shape = f"512-value pooled In on l_partkey (int32), R={R}"
+    out = []
+    words = pb.predicate_bitmap(prog, [col])
+    check(torch.equal(words, ref.predicate_bitmap(prog, [col])),
+          "predicate_bitmap pooled In: words differ")
+    b_ms, b_by = bound(nbytes(col, words), R * steps)
+    out.append(dict(
+        name="predicate_bitmap", max_abs_err=0.0,
+        ms=timer(lambda: pb.predicate_bitmap(prog, [col])),
+        plain_ms=timer(lambda: ref.predicate_bitmap(prog, [col])),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{shape}, kept={int(ref.unpack_bitmap(words, R).sum())}"))
+    ids = seg.to(torch.int32)
+    vals_ = [li["l_extendedprice"]]
+    sums, counts = fsa.fused_scan_agg(prog, [col], ids, vals_, n_parts)
+    psums, pcounts = ref.fused_scan_agg(prog, [col], ids, vals_, n_parts)
+    check(torch.equal(counts, pcounts), "fused_scan_agg pooled In: counts "
+                                        "differ")
+    check(torch.allclose(sums, psums, rtol=SUM_RTOL, atol=0.0),
+          f"fused_scan_agg pooled In: sums differ beyond rtol {SUM_RTOL}")
+    kept = int(pcounts.sum())
+    b_ms, b_by = bound(nbytes(col) + kept * 12 + n_parts * 16,
+                       R * steps + 2 * kept)
+    out.append(dict(
+        name="fused_scan_agg", max_abs_err=float((sums - psums).abs().max()),
+        ms=timer(lambda: fsa.fused_scan_agg(prog, [col], ids, vals_,
+                                            n_parts)),
+        plain_ms=timer(lambda: ref.fused_scan_agg(prog, [col], ids, vals_,
+                                                  n_parts)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{shape}, sum of l_extendedprice by partition, G={n_parts}, "
+              f"kept={kept}"))
+    keys, P = li["l_orderkey"], SHUFFLE_TARGETS
+    got = fss.fused_scan_shuffle(prog, [col], keys, P)
+    plain = ref.fused_scan_shuffle(prog, [col], keys, P)
+    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+          "fused_scan_shuffle pooled In: words, pids or histogram differ")
+    b_ms, b_by = bound(nbytes(col, keys, *got), R * (steps + 3))
+    out.append(dict(
+        name="fused_scan_shuffle", max_abs_err=max(
+            max_diff(a, b) for a, b in zip(got, plain)),
+        ms=timer(lambda: fss.fused_scan_shuffle(prog, [col], keys, P)),
+        plain_ms=timer(lambda: ref.fused_scan_shuffle(prog, [col], keys, P)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{shape}, key l_orderkey, P={P}"))
+    return out
+
+
+def split_route_check(cat):
+    """A nine-column AND (one column past a program's eight: two programs,
+    their words combined with ``&``) through the executor over lineitem's
+    partitions, as a filter and as a count by partition over the kept
+    rows, held to ``compile_expr`` over the whole columns."""
+    from repro_torch import kernels
+    from repro_torch.core.executor import compile_push_plan
+    from repro_torch.core.plan import PushPlan
+    from repro_torch.kernels.program import SplitProgram, program_for
+    from repro_torch.queryproc.expressions import Col, compile_expr
+    from repro_torch.queryproc.table import ColumnTable
+
+    names = ("l_quantity", "l_discount", "l_tax", "l_shipdate",
+             "l_commitdate", "l_receiptdate", "l_returnflag", "l_linestatus",
+             "l_shipmode")
+    pred = Col("l_quantity") <= 3
+    for c in names[1:]:
+        pred = pred & (Col(c) >= 0)
+    li = cat.scan_table("lineitem", [*names, "l_orderkey"]).cols
+    check(isinstance(program_for(pred, li), SplitProgram),
+          "nine-column AND: not split")
+    want = li["l_orderkey"][compile_expr(pred)(li)]
+    parts = [p.data for p in cat.partitions_of("lineitem")]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got, _ = compile_push_plan(PushPlan("lineitem", ("l_orderkey",), pred)) \
+        .execute_batch_parts(parts)
+    counts, _ = compile_push_plan(PushPlan(
+        "lineitem", ("n",), pred, agg=((), (("n", "count", ""),)))) \
+        .execute_batch_parts(parts)
+    wall = time.perf_counter() - t0
+    n = kernels.launches()
+    check(torch.equal(ColumnTable.concat(got).cols["l_orderkey"], want),
+          "nine-column AND: filtered rows differ")
+    total = sum(float(c.cols["n"].sum()) for c in counts)
+    check(total == want.shape[0], "nine-column AND: counts differ")
+    on_card = want.is_cuda
+    check(not on_card or (n["predicate_bitmap"] == 4
+                          and n["fused_scan_agg"] == 1),
+          f"nine-column AND: launches {n}")
+    print(f"kernel: nine-column AND through the split route, R="
+          f"{li['l_orderkey'].shape[0]}, kept={want.shape[0]}, filter and "
+          f"count in {wall:.4f} s, launches {n}")
 
 
 # ------------------------------------------------------------ engine phase
@@ -739,6 +868,132 @@ def compiler_phase(cat, ccat, timer, sync):
     return launches, record
 
 
+# ------------------------------------------------------------ costed phase
+def costed_phase(cat, sync):
+    """The cost-based compiler, the cardinality corrector, the concurrent
+    run and the §3.1 oracle split over the catalog. Every query runs
+    ``compile_and_run(cost_based=True)`` in each of ``CONFIGS`` and must
+    equal the same query's maximal-frontier result; the corrector learns
+    from Q18 and Q4 run twice, then Q18 compiles costed with it; all 15
+    queries run concurrently in adaptive_pa at power 0.1; each query's
+    oracle split at power 0.1 is printed beside adaptive's makespan. Each
+    driven run has the launch counts zeroed just before it and read just
+    after. Returns the counts summed over the driven runs."""
+    from repro_torch import kernels
+    from repro_torch.compiler import QUERY_IDS, compile_query_costed
+    from repro_torch.core import optimum
+    from repro_torch.core.cost import CardinalityCorrector, StorageResources
+    from repro_torch.core.engine import (EngineConfig, compile_and_run,
+                                         results_equal, run_concurrent,
+                                         run_query, theoretical_split)
+    from repro_torch.core.simulator import SimRequest
+    from repro_torch.queryproc import queries
+
+    launches = {n: 0 for n in kernels.WRAPPERS}
+
+    def drive(fn, *args, **kwargs):
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        wall = time.perf_counter() - t0
+        for n, c in kernels.launches().items():
+            launches[n] += c
+        return out, wall
+
+    def config(mode, power, corrector=None):
+        return EngineConfig(res=StorageResources(storage_power=power),
+                            mode=mode, device=cat.device, corrector=corrector)
+
+    def short(text, n=100):
+        return text if text is None or len(text) <= n else \
+            f"{text[:n]}...({len(text)} chars)"
+
+    # the maximal frontier's result, and adaptive's makespan at power 0.1
+    maximal = {qid: compile_and_run(qid, cat, config("adaptive", 0.1))
+               for qid in QUERY_IDS}
+    for qid in QUERY_IDS:
+        for power in sorted({p for _m, p in CONFIGS}, reverse=True):
+            cq = compile_query_costed(
+                qid, cat, res=StorageResources(storage_power=power))
+            for ch in cq.cut_report:
+                print(f"costed: {qid} power={power} {ch.table} chosen="
+                      f"{ch.signatures[ch.chosen]} maximal="
+                      f"{ch.signatures[ch.maximal]} scores="
+                      f"{[round(x, 6) for x in ch.scores]} bitmap={ch.bitmap}"
+                      f" lowered={short(ch.lowered)}")
+        for mode, power in CONFIGS:
+            run, wall = drive(compile_and_run, qid, cat, config(mode, power),
+                              cost_based=True)
+            check(results_equal(run.result, maximal[qid].result),
+                  f"costed {qid} {mode} at power {power}: differs from the "
+                  f"maximal frontier")
+            by_table = {}
+            for o in run.outcomes:
+                by_table[o.table] = by_table.get(o.table, 0) + o.shipped_bytes
+            print(f"costed: {qid} mode={mode} storage_power={power} "
+                  f"wall_s={wall:.4f} admitted={run.n_admitted} "
+                  f"pushed_back={run.n_pushed_back} real_net_bytes="
+                  f"{run.real_net_bytes} {by_table} (maximal adaptive 0.1: "
+                  f"{maximal[qid].real_net_bytes}) result_rows="
+                  f"{len(run.result)}")
+
+    # the corrector loop of tests/test_cost_split.py at this scale
+    corr = CardinalityCorrector()
+    before = compile_query_costed("Q18", cat).frontier_signature()
+    for _ in range(2):
+        for qid in ("Q18", "Q4"):
+            run, _wall = drive(run_query, queries.build_query(qid), cat,
+                               config("eager", 1.0, corr))
+            if qid == "Q18":
+                q18_by_table = run.net_bytes_recon["by_table"]
+    after = compile_query_costed("Q18", cat, corrector=corr)
+    print(f"corrector: Q18 lineitem cut {before['lineitem']} -> "
+          f"{after.frontier_signature()['lineitem']}; snapshot "
+          f"{corr.snapshot()}; Q18 by_table {q18_by_table}")
+    run, wall = drive(compile_and_run, "Q18", cat, config("eager", 1.0, corr),
+                      cost_based=True)
+    check(results_equal(run.result, maximal["Q18"].result),
+          "Q18 compiled with the corrector: differs from the maximal frontier")
+    print(f"corrector: Q18 costed with the corrector, eager 1.0, wall_s="
+          f"{wall:.4f} real_net_bytes={run.real_net_bytes}")
+
+    # §6.2: every query at once, PA-aware, at power 0.1
+    runs, wall = drive(run_concurrent,
+                       [queries.build_query(q) for q in QUERY_IDS], cat,
+                       config("adaptive_pa", 0.1))
+    for qid, run in runs.items():
+        check(results_equal(run.result, maximal[qid].result),
+              f"concurrent {qid}: differs from its solo run")
+        print(f"concurrent: {qid} finish_s={run.t_pushable:.6f} admitted="
+              f"{run.n_admitted} pushed_back={run.n_pushed_back} "
+              f"real_net_bytes={run.real_net_bytes}")
+    print(f"concurrent: 15 queries adaptive_pa at power 0.1, makespan "
+          f"{next(iter(runs.values())).sim.makespan:.6f} s simulated, "
+          f"wall_s={wall:.4f}")
+
+    # Fig 7: the heuristic against the oracle splits at power 0.1, on the
+    # requests of the maximal frontier that adaptive ran above
+    res = StorageResources(storage_power=0.1)
+    for qid in QUERY_IDS:
+        run = maximal[qid]
+        fluid = theoretical_split(queries.build_query(qid), cat, res)
+        oracle = optimum.simulated_optimum(
+            [SimRequest(r.req_id, r.part.node_id, qid, r.cost)
+             for r in run.requests], res)
+        eq6 = optimum.uniform_prediction([r.cost for r in run.requests], res)
+        N = len(run.requests)
+        print(f"oracle: {qid} power=0.1 N={N} adaptive admitted="
+              f"{run.n_admitted} makespan_s={run.t_pushable:.6f}; "
+              f"theoretical_split n={fluid.n_pushdown} time_s="
+              f"{fluid.time:.6f}; simulated oracle n={oracle.n_pushdown} "
+              f"time_s={oracle.time:.6f}; Eq 6 n={eq6.n_pushdown}; "
+              f"gap_frac={abs(run.n_admitted - eq6.n_pushdown) / N:.4f} "
+              f"time_gap={(run.t_pushable - oracle.time) / oracle.time:.4f}")
+    return launches
+
+
 # ------------------------------------------------------------ §4.2 phase
 def fig3_columns(plan):
     """The Fig-3 storage request of ``benchmarks/bitmap_storage.py``: its
@@ -1022,6 +1277,12 @@ def main() -> int:
     engine = engine_phase(cat, torch.cuda.synchronize)
     print(f"engine phase: {time.perf_counter() - t0:.2f} s")
 
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    costed = costed_phase(cat, torch.cuda.synchronize)
+    print(f"costed phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
+
     t0 = time.perf_counter()
     ccat = catalog_from_arrays(arrays, NODES, RPP, cluster=CLUSTER)
     del arrays
@@ -1043,10 +1304,12 @@ def main() -> int:
     sec42 = section42_phase(cat, torch.cuda.synchronize)
     print(f"section 4.2 phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
-    launches = {n: engine[n] + comp[n] + sec42[n] for n in records}
+    launches = {n: engine[n] + costed[n] + comp[n] + sec42[n]
+                for n in records}
     print("kernels: " + "; ".join(
-        f"{n} check=ok launches={launches[n]} (engine {engine[n]}, "
-        f"compiler {comp[n]}, section 4.2 {sec42[n]})" for n in records))
+        f"{n} check=ok launches={launches[n]} (engine {engine[n]}, costed "
+        f"{costed[n]}, compiler {comp[n]}, section 4.2 {sec42[n]})"
+        for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,8 @@
 """Time the alternatives of the redesigned kernels on one GPU.
 
     python3 profile_kernels.py {grouped_agg,predicate_bitmap,fused_scan_agg,
-                                bitmap_apply,engine} [--seed 0]
+                                bitmap_apply,fused_scan_shuffle,engine}
+                               [--seed 0]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 ``repro_torch`` comes from ``PYTHONPATH`` when it is found there, else from
@@ -35,6 +36,10 @@ Prints the card's name and power limit.
   side (``core.bitmap.apply_bitmap_to_cache`` over 100 partitions and
   Q19's three cached columns): its device time, its launches, and the host
   time of the call alone and until the card is done.
+- ``fused_scan_shuffle``: on the same catalog, Q19's and Q3's lineitem
+  predicates with key ``l_orderkey`` into 4 targets, and, where the
+  checkout pools long ``In`` lists, chip_smoke's 512-value ``In`` on
+  ``l_partkey``, each beside its bytes bound.
 - ``engine``: on the same catalog, the wall time of Q1, Q3, Q6, Q12 and
   Q19 in chip_smoke's four configurations, each run once untimed and then
   ``--repeats`` times: first through the hand-built plans
@@ -296,6 +301,37 @@ def time_bitmap_apply(dev, seed):
           f"host_to_done_ms={host_s(call, torch.cuda.synchronize) * 1e3:.4f}")
 
 
+def time_fused_scan_shuffle(dev, seed):
+    from chip_smoke import POOLED_VALUES, bound, check, cuda_ms, nbytes
+    from repro_torch.kernels import fused_scan_shuffle as fss
+    from repro_torch.kernels import program, ref
+    from repro_torch.queryproc import queries
+    from repro_torch.queryproc.expressions import Col
+
+    li = lineitem_catalog(dev, seed).scan_table(
+        "lineitem", ["l_quantity", "l_shipmode", "l_shipinstruct",
+                     "l_shipdate", "l_orderkey", "l_partkey"]).cols
+    keys = li["l_orderkey"]
+    cases = [(q, queries.build_query(q).plans["lineitem"].predicate)
+             for q in ("Q19", "Q3")]
+    if hasattr(program, "K_IN_POOL"):
+        gen = torch.Generator().manual_seed(512)
+        hi = int(li["l_partkey"].max()) + 1
+        vals = torch.randperm(hi, generator=gen)[:POOLED_VALUES].tolist()
+        cases.append(("512-value pooled In", Col("l_partkey").isin(vals)))
+    for name, pred in cases:
+        prog = program.program_for(pred, li)
+        cols = [li[c] for c in prog.columns]
+        out = fss.fused_scan_shuffle(prog, cols, keys, 4)
+        check(all(torch.equal(a, b) for a, b in zip(
+            out, ref.fused_scan_shuffle(prog, cols, keys, 4))), name)
+        b_ms, _ = bound(nbytes(*cols, keys, *out),
+                        keys.shape[0] * (prog.n_ops + 3))
+        ms = cuda_ms(lambda: fss.fused_scan_shuffle(prog, cols, keys, 4))
+        print(f"fused_scan_shuffle {name} R={keys.shape[0]} {prog.n_ops} "
+              f"ops: ms={ms:.4f} bound_ms={b_ms:.4f}")
+
+
 def time_engine(dev, seed, repeats):
     from chip_smoke import CONFIGS
     from repro_torch.core import engine as eng
@@ -368,7 +404,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap",
                                        "fused_scan_agg", "bitmap_apply",
-                                       "engine"))
+                                       "fused_scan_shuffle", "engine"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=5,
                     help="timed runs a configuration (engine)")
@@ -389,6 +425,8 @@ def main() -> int:
         time_fused_scan_agg(dev, args.seed)
     elif args.kernel == "bitmap_apply":
         time_bitmap_apply(dev, args.seed)
+    elif args.kernel == "fused_scan_shuffle":
+        time_fused_scan_shuffle(dev, args.seed)
     elif args.kernel == "engine":
         time_engine(dev, args.seed, args.repeats)
     else:

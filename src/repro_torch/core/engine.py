@@ -10,6 +10,12 @@ what they need). For one query the engine:
 3. executes that split on the device (``core.runtime``),
 4. runs the query's residual over the merged tables.
 
+With a ``CardinalityCorrector`` in the config, every request's ``s_out``
+is rescaled by the ratios learned so far, and every run feeds its real
+pushdown bytes back. ``run_concurrent`` arbitrates several queries'
+requests together (§6.2's PA-aware experiment); ``theoretical_split`` is
+the §3.1 oracle split of one query (Fig 7).
+
 Modes: no_pushdown / eager / adaptive / adaptive_pa (§6.2 baselines).
 """
 from __future__ import annotations
@@ -20,10 +26,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import runtime
-from repro_torch.core.cost import RequestCost, StorageResources
+from repro_torch.core import optimum, runtime
+from repro_torch.core.cost import (CardinalityCorrector, RequestCost,
+                                   StorageResources)
 from repro_torch.core.executor import compile_push_plan
-from repro_torch.core.plan import PushPlan
+from repro_torch.core.plan import PushPlan, plan_signature
 from repro_torch.core.simulator import (MODE_ADAPTIVE, MODES, SimRequest,
                                         SimResult, simulate)
 from repro_torch.device import resolve_device
@@ -31,7 +38,8 @@ from repro_torch.queryproc.table import ColumnTable
 from repro_torch.storage.catalog import Catalog, Partition
 
 __all__ = ["MODES", "EngineConfig", "PlannedRequest", "QueryRun",
-           "compile_and_run", "plan_requests", "run_query", "results_equal"]
+           "compile_and_run", "plan_requests", "run_concurrent", "run_query",
+           "results_equal", "theoretical_split"]
 
 
 @dataclasses.dataclass
@@ -41,6 +49,9 @@ class EngineConfig:
     compute_bw: float = 2.4e9   # compute-node operator bandwidth (16 vCPU)
     num_compute_nodes: int = 1
     device: Optional[str] = None  # None = cuda; "cpu" = plain versions
+    # online s_out correction: requests are costed with its ratios, and
+    # every run feeds its real pushdown bytes back (results never change)
+    corrector: Optional[CardinalityCorrector] = None
 
 
 @dataclasses.dataclass
@@ -50,7 +61,9 @@ class PlannedRequest:
     table: str
     part: Partition
     plan: PushPlan
-    cost: RequestCost
+    cost: RequestCost      # as arbitrated (rescaled by the corrector)
+    s_out_raw: int = 0     # the uncorrected s_out estimate, which the
+    #                        corrector's feedback is measured against
 
 
 @dataclasses.dataclass
@@ -73,15 +86,23 @@ class QueryRun:
         return self.t_pushable + self.t_nonpushable
 
 
-def plan_requests(query, catalog: Catalog, start_id: int = 0
+def plan_requests(query, catalog: Catalog, start_id: int = 0,
+                  corrector: Optional[CardinalityCorrector] = None
                   ) -> List[PlannedRequest]:
+    """One costed request per partition of every table the query scans,
+    numbered from ``start_id``; ``corrector`` rescales each ``s_out``."""
     out: List[PlannedRequest] = []
     rid = start_id
     for table, plan in query.plans.items():
         cplan = compile_push_plan(plan)
+        sig = plan_signature(plan)
         for part in catalog.partitions_of(table):
+            cost = cplan.estimate_cost(part)
+            raw = cost.s_out
+            if corrector is not None:
+                cost = corrector.correct(query.qid, table, sig, cost)
             out.append(PlannedRequest(rid, query.qid, table, part, plan,
-                                      cplan.estimate_cost(part)))
+                                      cost, s_out_raw=raw))
             rid += 1
     return out
 
@@ -94,6 +115,36 @@ def nonpushable_time(merged: Dict[str, ColumnTable], cfg: EngineConfig
     return b / (cfg.compute_bw * cfg.num_compute_nodes)
 
 
+def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
+                 cfg: EngineConfig, t_pushable: float, net_bytes: float,
+                 bitmaps: Optional[Dict[int, torch.Tensor]] = None
+                 ) -> QueryRun:
+    """Execute the split ``sim`` decided for ``reqs``, feed the corrector,
+    run the residual and reconcile the bytes."""
+    split = runtime.execute_split(reqs, sim.decisions(), bitmaps)
+    if split.n_pushdown != sim.admitted(query.qid):
+        raise RuntimeError(f"{query.qid}: executed {split.n_pushdown} "
+                           f"pushdowns, arbitrated {sim.admitted(query.qid)}")
+    if cfg.corrector is not None:
+        runtime.feed_corrector(cfg.corrector, query.qid, reqs, split.outcomes)
+    result = runtime.run_residual(query, split.merged)
+    return QueryRun(
+        qid=query.qid, result=result, sim=sim, t_pushable=t_pushable,
+        t_nonpushable=nonpushable_time(split.merged, cfg), requests=reqs,
+        net_bytes=net_bytes, n_admitted=sim.admitted(query.qid),
+        n_pushed_back=sim.pushed_back_by_query.get(query.qid, 0),
+        real_net_bytes=split.real_net_bytes,
+        net_bytes_recon=runtime.reconcile_net_bytes(sim, reqs, split),
+        outcomes=split.outcomes)
+
+
+def _check_catalog(catalog: Catalog, cfg: EngineConfig) -> None:
+    dev = resolve_device(cfg.device)
+    if catalog.device != dev:
+        raise ValueError(f"catalog lives on {catalog.device}, the engine is "
+                         f"configured for {dev}")
+
+
 def run_query(query, catalog: Catalog, cfg: EngineConfig,
               requests: Optional[List[PlannedRequest]] = None,
               bitmaps: Optional[Dict[int, torch.Tensor]] = None) -> QueryRun:
@@ -102,26 +153,32 @@ def run_query(query, catalog: Catalog, cfg: EngineConfig,
     ``requests`` replaces the planned requests (e.g. recosted by
     ``core.bitmap.rewrite_all``); ``bitmaps`` maps request ids to the
     packed words their ``apply_bitmap`` plans filter with."""
-    dev = resolve_device(cfg.device)
-    if catalog.device != dev:
-        raise ValueError(f"catalog lives on {catalog.device}, the engine is "
-                         f"configured for {dev}")
-    reqs = requests if requests is not None else plan_requests(query, catalog)
+    _check_catalog(catalog, cfg)
+    reqs = requests if requests is not None else plan_requests(
+        query, catalog, corrector=cfg.corrector)
     sim = simulate([SimRequest(r.req_id, r.part.node_id, query.qid, r.cost)
                     for r in reqs], cfg.res, cfg.mode)
-    split = runtime.execute_split(reqs, sim.decisions(), bitmaps)
-    if split.n_pushdown != sim.admitted(query.qid):
-        raise RuntimeError(f"{query.qid}: executed {split.n_pushdown} "
-                           f"pushdowns, arbitrated {sim.admitted(query.qid)}")
-    result = runtime.run_residual(query, split.merged)
-    return QueryRun(
-        qid=query.qid, result=result, sim=sim, t_pushable=sim.makespan,
-        t_nonpushable=nonpushable_time(split.merged, cfg), requests=reqs,
-        net_bytes=sim.net_bytes, n_admitted=sim.admitted(query.qid),
-        n_pushed_back=sim.pushed_back_by_query.get(query.qid, 0),
-        real_net_bytes=split.real_net_bytes,
-        net_bytes_recon=runtime.reconcile_net_bytes(sim, reqs, split),
-        outcomes=split.outcomes)
+    return _run_decided(query, reqs, sim, cfg, sim.makespan, sim.net_bytes,
+                        bitmaps)
+
+
+def run_concurrent(queries, catalog: Catalog, cfg: EngineConfig
+                   ) -> Dict[str, QueryRun]:
+    """Several queries submitted at once (§6.2's PA-aware experiment): all
+    their requests share the storage nodes' queues and slots in one
+    simulation, then each query runs its decided split, finishing at its
+    last request."""
+    _check_catalog(catalog, cfg)
+    all_reqs: List[PlannedRequest] = []
+    for q in queries:
+        all_reqs.extend(plan_requests(q, catalog, start_id=len(all_reqs),
+                                      corrector=cfg.corrector))
+    sim = simulate([SimRequest(r.req_id, r.part.node_id, r.query_id, r.cost)
+                    for r in all_reqs], cfg.res, cfg.mode)
+    return {q.qid: _run_decided(
+        q, [r for r in all_reqs if r.query_id == q.qid], sim, cfg,
+        t_pushable=sim.finish_by_query[q.qid],
+        net_bytes=sim.net_bytes_by_query[q.qid]) for q in queries}
 
 
 def compile_and_run(qid: str, catalog: Catalog, cfg: EngineConfig,
@@ -129,13 +186,25 @@ def compile_and_run(qid: str, catalog: Catalog, cfg: EngineConfig,
                     cost_based: bool = False) -> QueryRun:
     """Compiler front door: logical-plan IR -> amenability split -> run,
     i.e. ``run_query(compiler.compile_query(qid, fact_selectivity), ...)``.
-    The cost-based compiler (``cost_based=True``) is not ported yet."""
+    ``cost_based=True`` compiles with ``compile_query_costed`` instead: each
+    table's cut is chosen by estimated cost over this catalog (and the
+    config's corrector, when set); the results are the same."""
+    from repro_torch import compiler  # deferred: a cycle
     if cost_based:
-        raise NotImplementedError("the cost-based compiler is not ported "
-                                  "yet; compile_and_run pushes the maximal "
-                                  "frontier")
-    from repro_torch.compiler import compile_query  # deferred: a cycle
-    return run_query(compile_query(qid, fact_selectivity), catalog, cfg)
+        cq = compiler.compile_query_costed(
+            qid, catalog, res=cfg.res, corrector=cfg.corrector,
+            fact_selectivity=fact_selectivity, compute_bw=cfg.compute_bw)
+        return run_query(cq.query, catalog, cfg)
+    return run_query(compiler.compile_query(qid, fact_selectivity), catalog,
+                     cfg)
+
+
+def theoretical_split(query, catalog: Catalog, res: StorageResources
+                      ) -> optimum.Split:
+    """The discrete oracle split (§3.1) of the query's requests, for the
+    gap evaluation of Fig 7."""
+    reqs = plan_requests(query, catalog)
+    return optimum.discrete_optimum([r.cost for r in reqs], res)
 
 
 def results_equal(a: ColumnTable, b: ColumnTable, tol: float = 1e-6) -> bool:

@@ -10,6 +10,11 @@ returns each partition's result and its §4.2 by-products (``aux``).
   computed over the survivors, and the projection is returned.
   ``apply_bitmap`` plans take the mask from the words the compute layer
   shipped per partition instead, and never read the predicate columns.
+- A predicate too large for one kernel program (``program.SplitProgram``)
+  takes a route of its own: ``predicate_bitmap`` runs once per part and
+  the words combine with ``&``/``|`` on the device; the kept rows are
+  then gathered, so an aggregate runs ``fused_scan_agg`` with no program
+  and a shuffle hashes the kept keys with ``hash_partition``.
 - Aggregating plans: derived columns are computed over every row, rows
   get dense group ids ``(partition, keys...)`` in lexicographic order —
   the order the reference's ``(pid, keys...)`` lexsort gives — and one
@@ -48,7 +53,7 @@ reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,7 +64,8 @@ from repro_torch.kernels import fused_scan_agg as fsa
 from repro_torch.kernels import fused_scan_shuffle as fss
 from repro_torch.kernels import hash_partition as hpk
 from repro_torch.kernels import predicate_bitmap as pbk
-from repro_torch.kernels.program import Program, compile_program
+from repro_torch.kernels.program import (Program, SplitProgram,
+                                         compile_predicate)
 from repro_torch.kernels.ref import words_from_uint32
 from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc import operators as qops
@@ -133,15 +139,16 @@ class CompiledPushPlan:
     having_sel_fn: Optional[Callable] = None  # the HAVING's estimator
     # kernel programs of the predicate and the HAVING filter, per tuple of
     # their columns' dtypes
-    programs: Dict[tuple, Program] = dataclasses.field(default_factory=dict,
-                                                       repr=False)
+    programs: Dict[tuple, Union[Program, SplitProgram]] = \
+        dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def minmax(self) -> bool:
         """The plan pushes a min or max aggregate."""
         return any(f in ("min", "max") for f, _ in self.agg_spec.values())
 
-    def program(self, cols: Dict[str, torch.Tensor]) -> Optional[Program]:
+    def program(self, cols: Dict[str, torch.Tensor]
+                ) -> Optional[Union[Program, SplitProgram]]:
         """The predicate's postfix program for these columns, compiled at
         the first batch whose columns have their dtypes (None when the
         plan evaluates no predicate)."""
@@ -150,19 +157,21 @@ class CompiledPushPlan:
         return self._program("predicate", self.plan.predicate,
                              self.pred_cols, cols)
 
-    def having_program(self, cols: Dict[str, torch.Tensor]) -> Program:
+    def having_program(self, cols: Dict[str, torch.Tensor]
+                       ) -> Union[Program, SplitProgram]:
         """The HAVING filter's program over the partial aggregate's
         output columns."""
         names = tuple(sorted(ex.columns_of(self.plan.having)))
         return self._program("having", self.plan.having, names, cols)
 
     def _program(self, which: str, expr: ex.Expr, names: Tuple[str, ...],
-                 cols: Dict[str, torch.Tensor]) -> Program:
+                 cols: Dict[str, torch.Tensor]
+                 ) -> Union[Program, SplitProgram]:
         dtypes = tuple(cols[c].dtype for c in names)
         key = (which,) + dtypes
         if key not in self.programs:
-            self.programs[key] = compile_program(expr,
-                                                 dict(zip(names, dtypes)))
+            self.programs[key] = compile_predicate(expr,
+                                                   dict(zip(names, dtypes)))
         return self.programs[key]
 
     def raw_projection(self, data: ColumnTable) -> ColumnTable:
@@ -209,22 +218,24 @@ class CompiledPushPlan:
         # selection: words of the predicate, or the compute layer's
         words = pids = keep = None
         prog = self.program({c: tables[0].cols[c] for c in self.pred_cols})
+        split = isinstance(prog, SplitProgram)
         if plan.apply_bitmap:
             if bitmaps is None or len(bitmaps) != n_parts:
                 raise ValueError("an apply_bitmap plan needs one bitmap per "
                                  "partition")
             keep = unpack_parts(bitmaps, lens)
         elif prog is not None and (plan.agg is None or plan.bitmap_only
-                                   or self.minmax):
-            pcols = [concat(c) for c in prog.columns]
+                                   or self.minmax or split):
             key = plan.shuffle[0] if plan.shuffle is not None else None
-            if (plan.agg is None and key is not None
+            if (plan.agg is None and key is not None and not split
                     and key in tables[0].cols):
                 words, pids, _ = fss.fused_scan_shuffle(
-                    prog, pcols, concat(key), plan.shuffle[1])
+                    prog, [concat(c) for c in prog.columns], concat(key),
+                    plan.shuffle[1])
             else:
-                words = pbk.predicate_bitmap(prog, pcols)
-            if plan.agg is None or self.minmax:
+                words = pbk.predicate_words(
+                    prog, {c: concat(c) for c in prog.columns})
+            if plan.agg is None or self.minmax or split:
                 keep = qops.unpack_bitmap(words, sum(lens))
 
         part_of = None  # each output row's partition, where not contiguous
@@ -233,9 +244,8 @@ class CompiledPushPlan:
                 lens, {c: concat(c) for c in present},
                 None if keep is not None else prog, keep)
             if plan.having is not None:
-                hprog = self.having_program(out.cols)
-                kept = qops.unpack_bitmap(pbk.predicate_bitmap(
-                    hprog, [out.cols[c] for c in hprog.columns]), len(out))
+                kept = qops.unpack_bitmap(pbk.predicate_words(
+                    self.having_program(out.cols), out.cols), len(out))
                 idx = torch.nonzero(kept).flatten()
                 out, part_of = out.take(idx), part_of[idx]
         else:

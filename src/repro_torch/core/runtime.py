@@ -19,12 +19,14 @@ path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN
+from repro_torch.core.cost import CardinalityCorrector
 from repro_torch.core.executor import CompiledPushPlan, compile_push_plan
+from repro_torch.core.plan import plan_signature
 from repro_torch.queryproc.table import ColumnTable
 
 
@@ -130,12 +132,28 @@ def execute_split(reqs, decisions: Dict[int, str],
 def reconcile_net_bytes(sim, reqs, split: SplitExecution) -> Dict:
     """Line real shipped bytes up against the simulator's ``net_bytes``:
     the pushback component matches exactly, the pushdown one differs by
-    the cost model's ``s_out`` estimation error."""
+    the cost model's ``s_out`` estimation error, overall
+    (``s_out_estimate_ratio``, sim / real) and per table (``by_table``,
+    what the ``CardinalityCorrector`` learns from)."""
     decisions = sim.decisions()
     sim_pd = sum(r.cost.s_out for r in reqs
                  if decisions.get(r.req_id, PUSHDOWN) == PUSHDOWN)
     sim_pb = sum(r.cost.s_in for r in reqs
                  if decisions.get(r.req_id, PUSHDOWN) == PUSHBACK)
+    by_table: Dict[str, Dict[str, float]] = {}
+    real_pd_by_id = {o.req_id: o.shipped_bytes for o in split.outcomes
+                     if o.path == PUSHDOWN}
+    for r in reqs:
+        if r.req_id not in real_pd_by_id:
+            continue
+        row = by_table.setdefault(r.table, {"sim_pushdown_bytes": 0,
+                                            "real_pushdown_bytes": 0})
+        row["sim_pushdown_bytes"] += r.cost.s_out
+        row["real_pushdown_bytes"] += real_pd_by_id[r.req_id]
+    for row in by_table.values():
+        row["s_out_estimate_ratio"] = (
+            row["sim_pushdown_bytes"] / row["real_pushdown_bytes"]
+            if row["real_pushdown_bytes"] else None)
     return {
         "sim_net_bytes": sim_pd + sim_pb,
         "real_net_bytes": split.real_net_bytes,
@@ -145,4 +163,25 @@ def reconcile_net_bytes(sim, reqs, split: SplitExecution) -> Dict:
         "real_pushback_bytes": split.pushback_bytes,
         "s_out_estimate_ratio": (sim_pd / split.pushdown_bytes
                                  if split.pushdown_bytes else None),
+        "by_table": by_table,
     }
+
+
+def feed_corrector(corrector: CardinalityCorrector, qid: str, reqs,
+                   outcomes: Sequence[RequestOutcome]) -> None:
+    """Feed one executed decision split back into the corrector: per
+    (table, frontier signature), the summed uncorrected ``s_out`` estimate
+    of the pushdown requests against the bytes they really shipped.
+    Pushback requests teach nothing: their bytes (stored ``s_in``) are
+    exact by construction."""
+    real_by_id = {o.req_id: o.shipped_bytes for o in outcomes
+                  if o.path == PUSHDOWN}
+    groups: Dict[Tuple[str, str], List] = {}
+    for r in reqs:
+        if r.req_id in real_by_id:
+            groups.setdefault((r.table, plan_signature(r.plan)),
+                              []).append(r)
+    for (table, sig), rs in groups.items():
+        est = sum(r.s_out_raw or r.cost.s_out for r in rs)
+        real = sum(real_by_id[r.req_id] for r in rs)
+        corrector.observe(qid, table, sig, est, real)

@@ -1,7 +1,8 @@
 """Deterministic fluid discrete-event simulator of the storage layer.
 
-Port of ``repro.core.simulator`` (without the forced-decision oracle,
-measured load and tracing); its decisions equal the reference's exactly.
+Port of ``repro.core.simulator`` (without measured load and tracing); its
+decisions equal the reference's exactly. ``decisions`` fixes every
+request's path up front: the §3.1 oracle that ``core.optimum`` evaluates.
 Every task is a sequence of (resource, bytes) stages; resources serve the
 active tasks at deterministic rates; events fire when the earliest stage
 drains. Per storage node:
@@ -90,14 +91,47 @@ def _mk_task(req: SimRequest, path: str, now: float) -> TaskState:
     return TaskState(req, path, stages, slot_until, 0, now)
 
 
+class _ForcedArbitrator:
+    """Oracle mode: every request's path fixed up front (a global view,
+    §3.1); one FIFO queue per path, so a full path never blocks the
+    other."""
+
+    def __init__(self, res: StorageResources, decisions: Dict[int, str]):
+        self.decisions = decisions
+        self.q: Dict[str, List[int]] = {PUSHDOWN: [], PUSHBACK: []}
+        self.free = {PUSHDOWN: res.pd_slots, PUSHBACK: res.pb_slots}
+
+    def submit(self, req_id: int, cost: RequestCost) -> List[Tuple[int, str]]:
+        self.q[self.decisions[req_id]].append(req_id)
+        return self.drain()
+
+    def release(self, path: str) -> List[Tuple[int, str]]:
+        self.free[path] += 1
+        return self.drain()
+
+    def drain(self) -> List[Tuple[int, str]]:
+        out = []
+        for path in (PUSHDOWN, PUSHBACK):
+            while self.q[path] and self.free[path] > 0:
+                self.free[path] -= 1
+                out.append((self.q[path].pop(0), path))
+        return out
+
+
 def simulate(requests: List[SimRequest], res: StorageResources,
-             mode: str = MODE_ADAPTIVE) -> SimResult:
+             mode: str = MODE_ADAPTIVE,
+             decisions: Optional[Dict[int, str]] = None) -> SimResult:
+    """Run the requests through every node's Arbitrator in ``mode``, or
+    down the paths ``decisions`` fixes (req_id -> path) when given."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     nodes = sorted({r.node_id for r in requests})
     forced = {MODE_NO_PUSHDOWN: PUSHBACK, MODE_EAGER: PUSHDOWN}.get(mode)
-    arbs = {n: Arbitrator(res, pa_aware=(mode == MODE_ADAPTIVE_PA),
-                          forced_path=forced) for n in nodes}
+    if decisions is not None:
+        arbs = {n: _ForcedArbitrator(res, decisions) for n in nodes}
+    else:
+        arbs = {n: Arbitrator(res, pa_aware=(mode == MODE_ADAPTIVE_PA),
+                              forced_path=forced) for n in nodes}
     by_id = {r.req_id: r for r in requests}
     pending = sorted(requests, key=lambda r: (r.arrival, r.req_id))
     active: List[TaskState] = []

@@ -26,7 +26,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_PROG = [_P, _I, _P, _P, _I, _P, _P, _I]  # ops .. n_cols (program.cuh)
+_PROG = [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I]  # ops .. n_pool (program.cuh)
 SIGNATURES = {
     "predicate_bitmap": {
         "predicate_bitmap_launch": _PROG + [_LL, _I, _P, _P]},

@@ -25,6 +25,10 @@ def check_vector(t: torch.Tensor, name: str, dtypes: Tuple[torch.dtype, ...],
 
 def check_program_cols(prog: Program, cols: Sequence[torch.Tensor],
                        device: torch.device, length: int) -> None:
+    if not isinstance(prog, Program):
+        raise TypeError(f"a kernel takes one Program, not "
+                        f"{type(prog).__name__} (predicate_bitmap."
+                        f"predicate_words evaluates a SplitProgram)")
     if len(cols) != len(prog.columns):
         raise ValueError(f"program reads {len(prog.columns)} columns, "
                          f"got {len(cols)}")
@@ -35,8 +39,10 @@ def check_program_cols(prog: Program, cols: Sequence[torch.Tensor],
 def program_args(prog: Optional[Program], cols: Sequence[torch.Tensor]
                  ) -> Tuple[list, List[np.ndarray]]:
     """The ``(ops, n_ops, fconst, iconst, n_consts, col_ptrs, dtypes,
-    n_cols)`` arguments of a launch, plus the host arrays they point into
-    (keep those alive until the call returns)."""
+    n_cols, pool, n_pool)`` arguments of a launch on the columns' device,
+    plus the host arrays they point into (keep those alive until the call
+    returns)."""
+    pool_ptr, n_pool = 0, 0
     if prog is None:
         ops = np.zeros((0, 4), np.int32)
         fc, ic = np.zeros(0, np.float64), np.zeros(0, np.int64)
@@ -44,11 +50,15 @@ def program_args(prog: Optional[Program], cols: Sequence[torch.Tensor]
         ops = np.ascontiguousarray(prog.ops, np.int32)
         fc = np.ascontiguousarray(prog.fconst, np.float64)
         ic = np.ascontiguousarray(prog.iconst, np.int64)
+        if len(prog.pool):
+            pool_ptr = prog.pool_on(cols[0].device).data_ptr()
+            n_pool = len(prog.pool)
     ptrs = np.asarray([c.data_ptr() for c in cols], np.int64)
     dts = np.asarray([DTYPE_CODES[c.dtype] for c in cols], np.int32)
     keep = [ops, fc, ic, ptrs, dts]
     args = [ops.ctypes.data, len(ops), fc.ctypes.data, ic.ctypes.data,
-            len(fc), ptrs.ctypes.data, dts.ctypes.data, len(cols)]
+            len(fc), ptrs.ctypes.data, dts.ctypes.data, len(cols), pool_ptr,
+            n_pool]
     return args, keep
 
 

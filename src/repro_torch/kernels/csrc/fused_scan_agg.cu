@@ -308,12 +308,13 @@ static int launch_w(int V, const StagedProgram& S, const StageLayout& L,
 extern "C" int fused_scan_agg_launch(
     const int* ops, int n_ops, const double* fconst, const long long* iconst,
     int n_consts, const long long* col_ptrs, const int* dtypes, int n_cols,
+    const long long* pool, int n_pool,
     const void* ids, const long long* value_ptrs, const int* value_f64,
     int n_values, long long R, int G, void* sums, void* counts, int sms,
     void* stream) {
   PredProgram P;
   int err = fill_program(&P, ops, n_ops, fconst, iconst, n_consts, col_ptrs,
-                         dtypes, n_cols);
+                         dtypes, n_cols, pool, n_pool);
   if (err) return err;
   if (n_values < 0 || n_values > MAX_VALUES || (n_ops > 0) != (n_cols > 0) ||
       sms < 1)

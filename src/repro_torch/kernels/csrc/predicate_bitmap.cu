@@ -102,10 +102,11 @@ static int launch_staged(const StagedProgram& S, const StageLayout& L,
 extern "C" int predicate_bitmap_launch(
     const int* ops, int n_ops, const double* fconst, const long long* iconst,
     int n_consts, const long long* col_ptrs, const int* dtypes, int n_cols,
+    const long long* pool, int n_pool,
     long long R, int sms, void* words, void* stream) {
   PredProgram P;
   int err = fill_program(&P, ops, n_ops, fconst, iconst, n_consts, col_ptrs,
-                         dtypes, n_cols);
+                         dtypes, n_cols, pool, n_pool);
   if (err) return err;
   if (n_cols < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   if (R > 0) {

@@ -14,6 +14,14 @@
 // TILE_K rows and each leaf has TILE_K independent loads in flight. Each
 // row's boolean stack is one 32-bit register.
 //
+// An IN list longer than the inline constants take (K_IN_POOL) lives in a
+// device array the program holds by pointer: every pooled list of the
+// program, each sorted and deduplicated, one after the other, as int64
+// values or as the bits of f64 values (f32 comparisons: values already
+// rounded to f32). A leaf binary-searches its list with a fixed number of
+// steps, so the lanes never diverge; the pool is a few KB (512 int64
+// constants are 4 KB) and stays in L2 while the columns stream past.
+//
 // eval_staged (after eval_tile) runs the same program over a tile that
 // predicate_bitmap.cu or fused_scan_agg.cu has staged in shared memory
 // (staging.cuh), with a cheaper stack; the mbarrier and bulk-copy helpers
@@ -30,7 +38,8 @@
 #define PP_MAX_DEPTH 32  // the stack of a row is one 32-bit register
 #define TILE_K 8
 
-enum { K_CMP = 0, K_CMP_COL = 1, K_IN = 2, K_AND = 3, K_OR = 4 };
+enum { K_CMP = 0, K_CMP_COL = 1, K_IN = 2, K_AND = 3, K_OR = 4,
+       K_IN_POOL = 5 };
 enum { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3 };
 enum { MODE_I64 = 0, MODE_F32 = 1, MODE_F64 = 2 };
 
@@ -41,16 +50,25 @@ struct PredProgram {
   const void* cols[PP_MAX_COLS];
   int dtypes[PP_MAX_COLS];
   int n_ops;
+  const long long* pool;  // the K_IN_POOL lists (device memory)
+  int n_pool;
 };
 
 // Host side: copy the Python-encoded arrays into the by-value block.
 static inline int fill_program(PredProgram* p, const int* ops, int n_ops,
                                const double* fconst, const long long* iconst,
                                int n_consts, const long long* col_ptrs,
-                               const int* dtypes, int n_cols) {
+                               const int* dtypes, int n_cols,
+                               const long long* pool, int n_pool) {
   if (n_ops < 0 || n_ops > PP_MAX_OPS || n_consts < 0 ||
-      n_consts > PP_MAX_CONSTS || n_cols < 0 || n_cols > PP_MAX_COLS)
+      n_consts > PP_MAX_CONSTS || n_cols < 0 || n_cols > PP_MAX_COLS ||
+      n_pool < 0 || (n_pool > 0 && pool == nullptr))
     return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < n_ops; ++k) {  // a pooled list lies inside the pool
+    const int kind = ops[4 * k] & 15, x = ops[4 * k + 2], y = ops[4 * k + 3];
+    if (kind == K_IN_POOL && (x < 0 || y < 0 || x > n_pool - y))
+      return (int)cudaErrorInvalidValue;
+  }
   memset(p, 0, sizeof(*p));
   for (int k = 0; k < n_ops; ++k)
     p->ops[k] = make_int4(ops[4 * k], ops[4 * k + 1], ops[4 * k + 2],
@@ -64,7 +82,16 @@ static inline int fill_program(PredProgram* p, const int* ops, int n_ops,
     p->dtypes[k] = dtypes[k];
   }
   p->n_ops = n_ops;
+  p->pool = pool;
+  p->n_pool = n_pool;
   return 0;
+}
+
+// Host side: does the program hold a pooled IN leaf?
+static inline bool has_pool(const PredProgram& P) {
+  for (int k = 0; k < P.n_ops; ++k)
+    if ((P.ops[k].x & 15) == K_IN_POOL) return true;
+  return false;
 }
 
 template <typename T>
@@ -96,8 +123,54 @@ __device__ __forceinline__ T load_as(const PredProgram& P, int c, long long r) {
   }
 }
 
+// Entry i of the pool in the comparison type T.
+template <typename T>
+__device__ __forceinline__ T pool_at(const long long* pool, int i);
+template <>
+__device__ __forceinline__ long long pool_at<long long>(const long long* pool,
+                                                        int i) {
+  return __ldg(pool + i);
+}
+template <>
+__device__ __forceinline__ int pool_at<int>(const long long* pool, int i) {
+  return (int)__ldg(pool + i);  // never reached: pooled leaves stay int64
+}
+template <>
+__device__ __forceinline__ double pool_at<double>(const long long* pool,
+                                                  int i) {
+  return __longlong_as_double(__ldg(pool + i));
+}
+template <>
+__device__ __forceinline__ float pool_at<float>(const long long* pool, int i) {
+  return (float)__longlong_as_double(__ldg(pool + i));  // exact: f32 values
+}
+
+// Bit k: does the sorted list pool[off, off + n) hold x[k]? pos[k] counts
+// the list's values below x[k], found by halving steps from the largest
+// power of two <= n: the same steps in every lane, and each step's TILE_K
+// loads are independent. NaN is below nothing and equals nothing.
+template <typename T>
+__device__ __forceinline__ unsigned pool_in(const long long* pool, int off,
+                                            int n, const T (&x)[TILE_K]) {
+  int pos[TILE_K];
+#pragma unroll
+  for (int k = 0; k < TILE_K; ++k) pos[k] = 0;
+  for (int step = n > 0 ? 1 << (31 - __clz(n)) : 0; step > 0; step >>= 1) {
+#pragma unroll
+    for (int k = 0; k < TILE_K; ++k)
+      if (pos[k] + step <= n &&
+          pool_at<T>(pool, off + pos[k] + step - 1) < x[k])
+        pos[k] += step;
+  }
+  unsigned m = 0u;
+#pragma unroll
+  for (int k = 0; k < TILE_K; ++k)
+    m |= pos[k] < n && pool_at<T>(pool, off + pos[k]) == x[k] ? 1u << k : 0u;
+  return m;
+}
+
 // Push the comparison of the tile's rows against a constant or a constant
-// list (IN). C is the column's storage type, T the comparison type. Rows
+// list (inline IN). C is the column's storage type, T the comparison type. Rows
 // past R read nothing; the caller masks them.
 template <typename C, typename T>
 __device__ __forceinline__ void leaf_const(const PredProgram& P, int4 op,
@@ -169,11 +242,50 @@ __device__ __forceinline__ void leaf_cols(const PredProgram& P, int4 op,
   }
 }
 
+// The pooled IN leaf of eval_tile: bit k says whether row r0 + 32 * k is
+// in the list (rows past R read nothing). C is the column's storage type,
+// T the comparison type.
+template <typename C, typename T>
+__device__ __forceinline__ unsigned tile_pool_typed(const PredProgram& P,
+                                                    int4 op, long long r0,
+                                                    long long R) {
+  const C* col = static_cast<const C*>(P.cols[op.y]);
+  T x[TILE_K];
+#pragma unroll
+  for (int k = 0; k < TILE_K; ++k) {
+    const long long r = r0 + 32 * k;
+    x[k] = r < R ? (T)col[r] : (T)0;
+  }
+  return pool_in<T>(P.pool, op.z, op.w, x);
+}
+
+__device__ __forceinline__ unsigned tile_pool_leaf(const PredProgram& P,
+                                                   int4 op, long long r0,
+                                                   long long R) {
+  switch (P.dtypes[op.y] * 3 + ((op.x >> 8) & 3)) {
+    case DT_I32 * 3 + MODE_I64: return tile_pool_typed<int, long long>(P, op, r0, R);
+    case DT_I32 * 3 + MODE_F64: return tile_pool_typed<int, double>(P, op, r0, R);
+    case DT_I64 * 3 + MODE_I64: return tile_pool_typed<long long, long long>(P, op, r0, R);
+    case DT_I64 * 3 + MODE_F64: return tile_pool_typed<long long, double>(P, op, r0, R);
+    case DT_F32 * 3 + MODE_F32: return tile_pool_typed<float, float>(P, op, r0, R);
+    case DT_F32 * 3 + MODE_F64: return tile_pool_typed<float, double>(P, op, r0, R);
+    case DT_F64 * 3 + MODE_F64: return tile_pool_typed<double, double>(P, op, r0, R);
+    default: return 0u;  // a pairing compare_dtype never makes
+  }
+}
+
 // Bit k of the result is the predicate of row r0 + 32 * k (r0 = the tile's
 // base + lane); rows at or past R give 0. The types a leaf may pair are
 // the ones expressions.compare_dtype produces. P holds no MODE_I32 leaf
 // (that would decode here as DT_I64 * 3 + MODE_I64): narrowed programs are
 // StagedPrograms, which only eval_staged takes.
+//
+// POOL = false compiles no pooled leaf: any pooled branch in the loop,
+// inlined or out of line, cost fused_scan_shuffle 26-48% on programs that
+// have no pooled leaf (Q19 0.7248 -> 0.9137 ms, Q3 0.3334 -> 0.4928;
+// profile_kernels.py fused_scan_shuffle, NVIDIA H100 80GB HBM3, 700.00 W),
+// so the launch picks POOL from the program (has_pool).
+template <bool POOL>
 __device__ __forceinline__ unsigned eval_tile(const PredProgram& P,
                                               long long r0, long long R) {
   unsigned st[TILE_K];
@@ -193,6 +305,10 @@ __device__ __forceinline__ unsigned eval_tile(const PredProgram& P,
       if (mode == MODE_I64) leaf_cols<long long>(P, op, cmp, r0, R, st);
       else if (mode == MODE_F32) leaf_cols<float>(P, op, cmp, r0, R, st);
       else leaf_cols<double>(P, op, cmp, r0, R, st);
+    } else if (POOL && kind == K_IN_POOL) {
+      const unsigned m = tile_pool_leaf(P, op, r0, R);
+#pragma unroll
+      for (int k = 0; k < TILE_K; ++k) st[k] = (st[k] << 1) | ((m >> k) & 1u);
     } else {
       switch (P.dtypes[op.y] * 3 + mode) {
         case DT_I32 * 3 + MODE_I64:
@@ -300,7 +416,8 @@ __device__ __forceinline__ T staged_as(int dtype, const void* p, int r) {
   }
 }
 
-// The mask of the lane's rows against a constant or a constant list (IN);
+// The mask of the lane's rows against a constant or a constant list (IN,
+// inline or pooled);
 // bits of rows past n are undefined (eval_staged clears them).
 template <typename C, typename T, bool FULL>
 __device__ __forceinline__ unsigned staged_leaf(const PredProgram& P,
@@ -315,6 +432,7 @@ __device__ __forceinline__ unsigned staged_leaf(const PredProgram& P,
     const int r = r0 + 32 * k;
     x[k] = (FULL || r < n) ? (T)col[r] : (T)0;
   }
+  if (kind == K_IN_POOL) return pool_in<T>(P.pool, op.z, op.w, x);
   unsigned m = 0u;
   if (kind == K_IN) {
     for (int j = 0; j < op.w; ++j) {
@@ -363,6 +481,11 @@ __device__ __forceinline__ unsigned staged_leaf_cols(
 
 // Bit k of the result is the predicate of row r0 + 32 * k; rows at or past
 // n give 0. W 64-bit stack words hold a program of depth up to 8 * W.
+// Unlike eval_tile, it keeps the pooled leaf in every instantiation: the
+// branch moved the staged kernels by under 2% on programs without one (Q1's
+// four sums 1.0686 -> 1.0862 ms, Q19's words 0.3511 -> 0.3478 ms; NVIDIA
+// H100 80GB HBM3, 700.00 W), and a POOL parameter would double
+// fused_scan_agg.cu's kernels, the longest build of chip_smoke.py.
 template <int W, bool FULL>
 __device__ __forceinline__ unsigned eval_staged(const StagedProgram& S,
                                                 const unsigned char* base,

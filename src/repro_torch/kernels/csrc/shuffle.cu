@@ -106,7 +106,7 @@ hash_partition_kernel(const K* __restrict__ keys, long long R, unsigned P,
   flush_targets(s_hist, P, hist);
 }
 
-template <typename K>
+template <typename K, bool POOL>
 __global__ void __launch_bounds__(THREADS)
 fused_scan_shuffle_kernel(const __grid_constant__ PredProgram P,
                           const K* __restrict__ keys, long long R,
@@ -125,7 +125,7 @@ fused_scan_shuffle_kernel(const __grid_constant__ PredProgram P,
     const long long r0 = base + lane;
     unsigned pid[TILE_K];
     const unsigned in = hash_tile(keys, r0, R, n_targets, pid);
-    const unsigned keep = P.n_ops ? eval_tile(P, r0, R) : in;
+    const unsigned keep = P.n_ops ? eval_tile<POOL>(P, r0, R) : in;
     unsigned mine = 0u;
 #pragma unroll
     for (int k = 0; k < TILE_K; ++k) {
@@ -175,6 +175,7 @@ extern "C" int hash_partition_launch(const void* keys, int key_dt,
 extern "C" int fused_scan_shuffle_launch(
     const int* ops, int n_ops, const double* fconst, const long long* iconst,
     int n_consts, const long long* col_ptrs, const int* dtypes, int n_cols,
+    const long long* pool, int n_pool,
     const void* keys, int key_dt, long long R, int n_targets, void* words,
     void* pids, void* hist, int max_blocks, void* stream) {
   if (n_targets < 1 || n_targets > MAX_TARGETS ||
@@ -182,7 +183,7 @@ extern "C" int fused_scan_shuffle_launch(
     return (int)cudaErrorInvalidValue;
   PredProgram P;
   const int err = fill_program(&P, ops, n_ops, fconst, iconst, n_consts,
-                               col_ptrs, dtypes, n_cols);
+                               col_ptrs, dtypes, n_cols, pool, n_pool);
   if (err) return err;
   if (R > 0) {
     const unsigned blocks = (unsigned)grid_for(R, max_blocks);
@@ -191,13 +192,25 @@ extern "C" int fused_scan_shuffle_launch(
     unsigned* w = static_cast<unsigned*>(words);
     int* pd = static_cast<int*>(pids);
     unsigned long long* h = static_cast<unsigned long long*>(hist);
-    if (key_dt == DT_I32)
-      fused_scan_shuffle_kernel<int><<<blocks, THREADS, smem, s>>>(
-          P, static_cast<const int*>(keys), R, (unsigned)n_targets, w, pd, h);
-    else
-      fused_scan_shuffle_kernel<long long><<<blocks, THREADS, smem, s>>>(
-          P, static_cast<const long long*>(keys), R, (unsigned)n_targets, w,
-          pd, h);
+    const void* k = keys;
+    const unsigned nt = (unsigned)n_targets;
+    if (key_dt == DT_I32) {
+      if (has_pool(P))
+        fused_scan_shuffle_kernel<int, true><<<blocks, THREADS, smem, s>>>(
+            P, static_cast<const int*>(k), R, nt, w, pd, h);
+      else
+        fused_scan_shuffle_kernel<int, false><<<blocks, THREADS, smem, s>>>(
+            P, static_cast<const int*>(k), R, nt, w, pd, h);
+    } else {
+      if (has_pool(P))
+        fused_scan_shuffle_kernel<long long, true>
+            <<<blocks, THREADS, smem, s>>>(
+                P, static_cast<const long long*>(k), R, nt, w, pd, h);
+      else
+        fused_scan_shuffle_kernel<long long, false>
+            <<<blocks, THREADS, smem, s>>>(
+                P, static_cast<const long long*>(k), R, nt, w, pd, h);
+    }
   }
   return (int)cudaGetLastError();
 }

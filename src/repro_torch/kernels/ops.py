@@ -32,8 +32,7 @@ def predicate_bitmap(cols: Dict[str, torch.Tensor], expr: Expr
                      ) -> torch.Tensor:
     """Packed (ceil(R/32),) bitmap of ``expr`` as int32 words holding
     uint32 bits."""
-    prog = program_for(expr, cols)
-    return _pb.predicate_bitmap(prog, [cols[n] for n in prog.columns])
+    return _pb.predicate_words(program_for(expr, cols), cols)
 
 
 def _outputs(sums: torch.Tensor, counts: torch.Tensor,

@@ -19,12 +19,12 @@ each little-endian word directly.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence, Union
 
 import torch
 
 from repro_torch.kernels import _build, _launch, ref
-from repro_torch.kernels.program import Program
+from repro_torch.kernels.program import Program, SplitProgram
 
 
 def predicate_bitmap(prog: Program, cols: Sequence[torch.Tensor]
@@ -52,3 +52,16 @@ def predicate_bitmap(prog: Program, cols: Sequence[torch.Tensor]
 
 
 predicate_bitmap.launches = 0
+
+
+def predicate_words(prog: Union[Program, SplitProgram],
+                    cols: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The words of a program or of a split one over named columns: one
+    ``predicate_bitmap`` launch per program of the split, the words
+    combined with ``&``/``|`` on the columns' device (bits past R are 0 in
+    every part, so they stay 0)."""
+    if isinstance(prog, Program):
+        return predicate_bitmap(prog, [cols[c] for c in prog.columns])
+    left = predicate_words(prog.left, cols)
+    right = predicate_words(prog.right, cols)
+    return left & right if prog.op == "and" else left | right

@@ -14,29 +14,42 @@ Op encoding, one int32 quad ``(code, col, x, y)`` per op, with
 - ``CMP``:     push ``col <cmp> const[x]``
 - ``CMP_COL``: push ``col <cmp> col x``
 - ``IN``:      push ``col == const[x] or ... or col == const[x + y - 1]``
+- ``IN_POOL``: push ``col in pool[x:x + y]``, a sorted list the kernel
+  binary-searches (an ``In`` of more than ``INLINE_IN_MAX`` values)
 - ``AND``/``OR``: pop two, push the result
 
 ``mode`` is the type the comparison runs in, chosen by
 ``expressions.compare_dtype`` (numpy's rules): int64, float32 or float64.
-The stack is one 32-bit register, so a program may nest 32 deep.
+The pool holds int64 values, or the bits of f64 values for the float
+modes (rounded to f32 first in f32 mode); it goes to the device once per
+program (``Program.pool_on``) and the kernels take it by pointer. The
+stack is one 32-bit register, so a program may nest 32 deep.
+
+A predicate past the by-value limits (``MAX_OPS`` ops, ``MAX_CONSTS``
+inline constants, ``MAX_COLS`` columns, depth ``MAX_DEPTH``) compiles to
+a ``SplitProgram``: the tree cut at ``And``/``Or`` nodes into programs
+that fit, whose packed words combine with ``&``/``|``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.queryproc import expressions as ex
 
-K_CMP, K_CMP_COL, K_IN, K_AND, K_OR = range(5)
+K_CMP, K_CMP_COL, K_IN, K_AND, K_OR, K_IN_POOL = range(6)
 MODES = (torch.int64, torch.float32, torch.float64)
 DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
 
 # limits of the kernels' by-value parameter block (csrc/program.cuh)
 MAX_OPS, MAX_CONSTS, MAX_COLS, MAX_DEPTH = 64, 64, 8, 32
+# an In of more values is pooled: a binary search of 16 values takes 5
+# dependent steps, the inline scan 16 compares
+INLINE_IN_MAX = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,20 +59,56 @@ class Program:
     iconst: np.ndarray         # (n_consts,) int64
     columns: Tuple[str, ...]   # column slot -> name
     dtypes: Tuple[torch.dtype, ...]
+    pool: np.ndarray           # (n_pool,) int64: the IN_POOL lists
+    _pools: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def n_ops(self) -> int:
         return len(self.ops)
 
+    def pool_on(self, device: torch.device) -> torch.Tensor:
+        """The pool as a tensor on ``device``, copied there once."""
+        if device not in self._pools:
+            self._pools[device] = torch.from_numpy(self.pool).to(device)
+        return self._pools[device]
 
-def compile_program(expr: ex.Expr, dtypes: Dict[str, torch.dtype]
-                    ) -> Program:
-    """Encode ``expr`` for columns of the given dtypes."""
+
+@dataclasses.dataclass(frozen=True)
+class SplitProgram:
+    """A predicate too large for one program: its ``left`` and ``right``
+    subtrees (each a ``Program`` or ``SplitProgram``), whose selections
+    combine by ``op`` (``"and"`` or ``"or"``)."""
+    op: str
+    left: Union[Program, "SplitProgram"]
+    right: Union[Program, "SplitProgram"]
+
+    @property
+    def columns(self) -> Tuple[str, ...]:
+        return tuple(sorted(set(self.left.columns) | set(self.right.columns)))
+
+
+def _pooled(vals, mode: torch.dtype) -> np.ndarray:
+    """A pooled In list: sorted, deduplicated, NaN dropped (it matches no
+    row), as int64 values or the bits of f64 ones."""
+    arr = np.asarray(vals).reshape(-1)
+    if mode == torch.int64:
+        return np.unique(arr.astype(np.int64))
+    v = arr.astype(np.float32 if mode == torch.float32 else np.float64)
+    return np.unique(v[~np.isnan(v)]).astype(np.float64).view(np.int64)
+
+
+def _encode(expr: ex.Expr, dtypes: Dict[str, torch.dtype]
+            ) -> Tuple[Program, bool]:
+    """(the program of ``expr`` for columns of the given dtypes, whether
+    it fits the kernels' limits)."""
     names = sorted(ex.columns_of(expr))
     slot = {n: i for i, n in enumerate(names)}
     ops: List[Tuple[int, int, int, int]] = []
     fc: List[float] = []
     ic: List[int] = []
+    pool: List[np.ndarray] = []
+    n_pool = [0]
     depth = [0, 0]  # current, max
 
     def push():
@@ -91,6 +140,14 @@ def compile_program(expr: ex.Expr, dtypes: Dict[str, torch.dtype]
                 ops.append((K_CMP | cmp << 4 | MODES.index(mode) << 8,
                             slot[e.col.name], const(e.value, mode), 0))
             push()
+        elif isinstance(e, ex.In) and len(e.values) > INLINE_IN_MAX:
+            mode = ex.compare_dtype(dtypes[e.col.name], e.values)
+            vals = _pooled(e.values, mode)
+            ops.append((K_IN_POOL | MODES.index(mode) << 8,
+                        slot[e.col.name], n_pool[0], len(vals)))
+            pool.append(vals)
+            n_pool[0] += len(vals)
+            push()
         elif isinstance(e, ex.In):
             mode = ex.compare_dtype(dtypes[e.col.name], e.values)
             ops.append((K_IN | MODES.index(mode) << 8, slot[e.col.name],
@@ -105,16 +162,31 @@ def compile_program(expr: ex.Expr, dtypes: Dict[str, torch.dtype]
             raise TypeError(e)
 
     walk(expr)
-    if (len(ops) > MAX_OPS or len(fc) > MAX_CONSTS or len(names) > MAX_COLS
-            or depth[1] > MAX_DEPTH):
-        raise ValueError(f"predicate too large for the kernel program: "
-                         f"{len(ops)} ops, {len(fc)} constants, "
-                         f"{len(names)} columns, depth {depth[1]}")
-    return Program(np.asarray(ops, np.int32).reshape(-1, 4),
+    fits = (len(ops) <= MAX_OPS and len(fc) <= MAX_CONSTS
+            and len(names) <= MAX_COLS and depth[1] <= MAX_DEPTH)
+    prog = Program(np.asarray(ops, np.int32).reshape(-1, 4),
                    np.asarray(fc, np.float64), np.asarray(ic, np.int64),
-                   tuple(names), tuple(dtypes[n] for n in names))
+                   tuple(names), tuple(dtypes[n] for n in names),
+                   np.concatenate(pool) if pool else np.zeros(0, np.int64))
+    return prog, fits
 
 
-def program_for(expr: ex.Expr, cols: Dict[str, torch.Tensor]) -> Program:
-    return compile_program(expr, {n: cols[n].dtype
-                                  for n in ex.columns_of(expr)})
+def compile_predicate(expr: ex.Expr, dtypes: Dict[str, torch.dtype]
+                      ) -> Union[Program, SplitProgram]:
+    """One program when ``expr`` fits the limits, else the tree split at
+    its ``And``/``Or`` nodes until every part fits."""
+    prog, fits = _encode(expr, dtypes)
+    if fits:
+        return prog
+    if not isinstance(expr, (ex.And, ex.Or)):
+        raise ValueError(f"predicate leaf too large for a kernel program: "
+                         f"{expr!r}")
+    return SplitProgram("and" if isinstance(expr, ex.And) else "or",
+                        compile_predicate(expr.left, dtypes),
+                        compile_predicate(expr.right, dtypes))
+
+
+def program_for(expr: ex.Expr, cols: Dict[str, torch.Tensor]
+                ) -> Union[Program, SplitProgram]:
+    return compile_predicate(expr, {n: cols[n].dtype
+                                    for n in ex.columns_of(expr)})

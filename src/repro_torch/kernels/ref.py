@@ -10,10 +10,11 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.program import (K_AND, K_CMP, K_CMP_COL, K_IN, MODES,
-                                         Program)
+from repro_torch.kernels.program import (K_AND, K_CMP, K_CMP_COL, K_IN,
+                                         K_IN_POOL, MODES, Program)
 
 _CMP = (torch.le, torch.lt, torch.ge, torch.gt, torch.eq)  # CMP_OPS order
 
@@ -60,6 +61,12 @@ def run_program(prog: Program, cols: Sequence[torch.Tensor]) -> torch.Tensor:
                 for v in consts:
                     hit |= a == v
                 stack.append(hit)
+        elif kind == K_IN_POOL:
+            vals = prog.pool[x:x + y]
+            if mode != torch.int64:
+                vals = vals.view(np.float64)
+            stack.append(torch.isin(cols[c].to(mode), torch.from_numpy(
+                vals).to(device=cols[c].device, dtype=mode)))
         elif kind == K_CMP_COL:
             stack.append(_CMP[cmp](cols[c].to(mode), cols[x].to(mode)))
         else:

@@ -34,8 +34,7 @@ def filter_table(t: ColumnTable, pred: ex.Expr) -> ColumnTable:
 def selection_bitmap(t: ColumnTable, pred: ex.Expr) -> torch.Tensor:
     """Packed selection bitmap: int32 words holding uint32 bits, least
     significant bit first."""
-    prog = program_for(pred, t.cols)
-    return pbk.predicate_bitmap(prog, [t.cols[c] for c in prog.columns])
+    return pbk.predicate_words(program_for(pred, t.cols), t.cols)
 
 
 def apply_bitmap(t: ColumnTable, words: torch.Tensor) -> ColumnTable:
@@ -66,26 +65,35 @@ def group_ids(key_arrs: Sequence[torch.Tensor],
     value range (no sort); float keys by a sorted ``unique``. Ids may name
     groups no row has (the caller drops zero-count groups); when the code
     space exceeds ``DENSE_GROUP_LIMIT`` it is compressed with one sort.
+    Before a key would take the running code to 2**62, the code is
+    compressed to the ranks of its distinct values (``unique`` keeps their
+    order), and a key whose own range is that wide is coded by ``unique``
+    as a float key is; ``decode`` undoes every step.
     """
     n = key_arrs[0].shape[0] if key_arrs else lead.shape[0]
     dev = key_arrs[0].device if key_arrs else lead.device
     code = (lead.to(torch.int64) if lead is not None
             else torch.zeros(n, dtype=torch.int64, device=dev))
-    parts = []  # (span, lo or uniques, dtype) per key
+    # coding steps: (span, lo or uniques, dtype) per key, or a tensor of
+    # the code's distinct values where the code was compressed
+    steps: List = []
     total = lead_size
     for a in key_arrs:
-        if a.is_floating_point():
+        if not a.is_floating_point():
+            lo, hi = (int(v) for v in torch.aminmax(a)) if n else (0, 0)
+            span, base = hi - lo + 1, lo
+        if a.is_floating_point() or span >= 2 ** 62 // max(1, n):
             u, inv = torch.unique(a, sorted=True, return_inverse=True)
             span, base = max(1, u.numel()), u
         else:
-            lo, hi = (int(v) for v in torch.aminmax(a)) if n else (0, 0)
-            span, base = hi - lo + 1, lo
             inv = a.to(torch.int64) - lo
+        if total * span >= 2 ** 62:
+            uniq, code = torch.unique(code, sorted=True, return_inverse=True)
+            steps.append(uniq)
+            total = max(1, uniq.numel())
         total *= span
-        if total >= 2 ** 62:
-            raise NotImplementedError("group-key code space overflows int64")
         code = code * span + inv
-        parts.append((span, base, a.dtype))
+        steps.append((span, base, a.dtype))
     uniq = None
     if total > DENSE_GROUP_LIMIT:
         uniq, code = torch.unique(code, sorted=True, return_inverse=True)
@@ -96,7 +104,11 @@ def group_ids(key_arrs: Sequence[torch.Tensor],
     def decode(g: torch.Tensor):
         c = g.to(torch.int64) if uniq is None else uniq[g]
         keys = []
-        for span, base, dtype in reversed(parts):
+        for step in reversed(steps):
+            if isinstance(step, torch.Tensor):
+                c = step[c]
+                continue
+            span, base, dtype = step
             k = c % span
             c = c // span
             keys.append(base[k] if isinstance(base, torch.Tensor)

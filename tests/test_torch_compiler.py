@@ -211,9 +211,17 @@ def test_an_empty_fact_table_runs_every_query(catalog):
 
 
 def test_cost_based_compilation_is_not_silently_maximal(catalog):
-    with pytest.raises(NotImplementedError):
-        engine.compile_and_run("Q1", catalog, engine.EngineConfig(device="cpu"),
-                               cost_based=True)
+    """``cost_based=True`` runs the cost-based chooser's frontier: Q18's
+    lineitem is cut at the scan, below its high-NDV partial aggregate,
+    where the maximal frontier pushes the aggregate."""
+    run = engine.compile_and_run("Q18", catalog,
+                                 engine.EngineConfig(device="cpu"),
+                                 cost_based=True)
+    costed = compiler.compile_query_costed("Q18", catalog)
+    assert {r.table: r.plan for r in run.requests} == costed.plans
+    assert costed.frontier_signature()["lineitem"] == "scan"
+    assert compiler.compile_query_detailed(
+        "Q18").frontier_signature()["lineitem"] == "scan+agg"
 
 
 def test_clustered_partitions_match_the_reference(clustered):

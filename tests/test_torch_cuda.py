@@ -565,3 +565,126 @@ def test_section42_paths_on_the_card_match_the_cpu(cuda, catalogs):
                                                        b["shuffle_parts"]))
     assert all(v > 0 for k, v in kernels.launches().items()
                if k not in ("fused_scan_agg", "grouped_agg"))
+
+
+def _pooled_predicates(cols, n_vals, seed):
+    """A pooled In of ``n_vals`` constants on each of an int32, an int64
+    and an f64 column, alone and inside a larger program."""
+    rng = np.random.default_rng(seed)
+    vals = tuple(int(v) for v in rng.choice(50, min(n_vals, 50),
+                                            replace=False))
+    vals += tuple(range(1000, 1000 + n_vals - len(vals)))
+    fvals = tuple(float(v) / 100.0 for v in rng.choice(
+        1100, n_vals, replace=False))
+    return [Col("a").isin(vals), Col("b").isin(vals), Col("d").isin(fvals),
+            (Col("a").isin(vals) & (Col("x") > 0.2))
+            | (Col("d").isin(fvals) & Col("b").isin((-3, 0, 4)))]
+
+
+@pytest.mark.parametrize("n_vals", (65, 512))
+@pytest.mark.parametrize("offset", (0, 1, 3))
+@pytest.mark.parametrize("R", (33, 2049, 1_000_003))
+def test_pooled_in_matches_plain(cuda, R, offset, n_vals):
+    """The pooled In (a sorted device list, binary-searched) through the
+    three kernels that interpret a program, on views that start off a
+    16-byte boundary."""
+    host = {k: v.cpu().numpy()
+            for k, v in _columns(R, R + offset, "cpu").items()}
+    cols = {k: _view_at(v, (offset + i) % 4 if offset else 0, cuda)
+            for i, (k, v) in enumerate(host.items())}
+    rng = np.random.default_rng(R)
+    G = 600
+    ids = torch.from_numpy(rng.integers(0, G, R, np.int32)).to(cuda)
+    keys = torch.from_numpy(rng.integers(0, 10 ** 6, R)).to(cuda)
+    for expr in _pooled_predicates(cols, n_vals, R):
+        prog = program_for(expr, cols)
+        assert len(prog.pool) > 0, expr
+        pcols = [cols[c] for c in prog.columns]
+        words = pb.predicate_bitmap(prog, pcols)
+        assert torch.equal(words, ref.predicate_bitmap(prog, pcols)), expr
+        _check_agg(prog, pcols, ids, [cols["d"], cols["x"]], G)
+        out = fss.fused_scan_shuffle(prog, pcols, keys, 4)
+        plain = ref.fused_scan_shuffle(prog, pcols, keys, 4)
+        assert all(torch.equal(a, b) for a, b in zip(out, plain)), expr
+
+
+@pytest.mark.parametrize("kind", ("filter", "agg", "shuffle"))
+def test_split_program_route_on_the_card_matches_the_cpu(cuda, kind):
+    """The nine-column AND (two programs, words combined with &) through
+    the executor: a filter, an aggregate over the kept rows and a shuffle
+    of the kept keys, on partitions that are not 32-row aligned."""
+    from repro_torch.core.plan import PushPlan
+    from repro_torch.queryproc.table import ColumnTable
+    rng = np.random.default_rng(9)
+    host = {f"c{i}": rng.integers(-1, 30, 5000).astype(np.int32)
+            for i in range(9)}
+    pred = Col("c0") >= 0
+    for i in range(1, 9):
+        pred = pred & (Col(f"c{i}") >= 0)
+    kw = dict(table="t", columns=tuple(sorted(host)))
+    if kind == "agg":
+        kw = dict(table="t", columns=("c0", "n"),
+                  agg=(("c0",), (("n", "count", ""),)))
+    elif kind == "shuffle":
+        kw["shuffle"] = ("c0", 4)
+    plan = compile_push_plan(PushPlan(predicate=pred, **kw))
+    bounds = (0, 1700, 3333, 5000)
+    runs = []
+    for dev in (cuda, "cpu"):
+        parts = [ColumnTable.from_numpy({c: v[lo:hi] for c, v in
+                                         host.items()}, dev)
+                 for lo, hi in zip(bounds, bounds[1:])]
+        kernels.reset_launches()
+        runs.append(plan.execute_batch_parts(parts))
+        if dev == cuda:
+            n = kernels.launches()
+            assert n["predicate_bitmap"] == 2 and n["fused_scan_shuffle"] == 0
+            assert n["fused_scan_agg"] == (kind == "agg")
+            assert n["hash_partition"] == (kind == "shuffle")
+    (gt, ga_), (ct, ca) = runs
+    for x, y, a, b in zip(gt, ct, ga_, ca):
+        assert _same(x, y)
+        for s, t in zip(a.get("shuffle_parts", ()),
+                        b.get("shuffle_parts", ())):
+            assert _same(s, t)
+
+
+def test_group_ids_over_wide_keys_on_the_card(cuda):
+    from repro_torch.queryproc.operators import group_ids, grouped_agg
+    from repro_torch.queryproc.table import ColumnTable
+    a = torch.tensor([0, 2 ** 31, 0, 2 ** 31], device=cuda)
+    b = torch.tensor([0, 2 ** 31, 0, 0], device=cuda)
+    ids, G, decode = group_ids([a, b])
+    assert G == 3 and ids.tolist() == [0, 2, 0, 1]
+    _, (ka, kb) = decode(torch.arange(G, device=cuda))
+    assert ka.tolist() == [0, 2 ** 31, 2 ** 31] and kb.tolist() == [
+        0, 0, 2 ** 31]
+    out = grouped_agg(ColumnTable({"a": a, "b": b, "v": torch.tensor(
+        [1.0, 2.0, 3.0, 4.0], device=cuda)}), ["a", "b"],
+        {"s": ("sum", "v")})
+    assert out.cols["s"].tolist() == [4.0, 4.0, 2.0]
+
+
+@pytest.mark.parametrize("qid", ("Q3", "Q5", "Q7", "Q8", "Q17", "Q18", "Q19"))
+def test_costed_compile_and_run_on_the_card_matches_the_cpu(cuda, qid):
+    """The cost-based compiler's frontier (lowered In lists, the bitmap
+    exchange, cuts below an aggregate) on a catalog whose dimension tables
+    are small enough for the domain lowerings, as on the CPU."""
+    from repro_torch.core.engine import compile_and_run
+    gpu, cpu = (tpch.build_catalog(sf=1.0, seed=0, num_nodes=2,
+                                   rows_per_partition=4000, device=d)
+                for d in (cuda, "cpu"))
+    for mode, power in (("eager", 1.0), ("adaptive", 0.1)):
+        res = StorageResources(storage_power=power)
+        kernels.reset_launches()
+        g = compile_and_run(qid, gpu, EngineConfig(res=res, mode=mode,
+                                                   device=cuda),
+                            cost_based=True)
+        assert sum(kernels.launches().values()) > 0
+        c = compile_and_run(qid, cpu, EngineConfig(res=res, mode=mode,
+                                                   device="cpu"),
+                            cost_based=True)
+        assert results_equal(g.result, c.result)
+        assert g.sim.decisions() == c.sim.decisions()
+        assert g.real_net_bytes == c.real_net_bytes
+        assert g.net_bytes_recon == c.net_bytes_recon

@@ -31,8 +31,11 @@ from repro_torch.kernels import bitmap_apply as ba
 from repro_torch.kernels import fused_scan_agg as fsa
 from repro_torch.kernels import grouped_agg as ga
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import predicate_bitmap as pb
 from repro_torch.kernels import ref
-from repro_torch.kernels.program import MAX_OPS, compile_program, program_for
+from repro_torch.kernels.program import (MAX_CONSTS, MAX_OPS, Program,
+                                         SplitProgram, compile_predicate,
+                                         program_for)
 from repro_torch.queryproc import expressions as tex
 from repro_torch.queryproc import queries as tqueries
 
@@ -322,12 +325,29 @@ def test_program_edge_constants_match_numpy(case):
 
 
 def test_program_rejects_what_the_kernel_cannot_hold():
+    """A predicate past the by-value limits is no one program: it splits
+    into parts that each fit, a kernel wrapper refuses the split, and the
+    split's words are the predicate's."""
     C = tex.Col
     e = C("a") < 0
     for i in range(1, MAX_OPS):
         e = e | (C("a") < i)
-    with pytest.raises(ValueError):
-        compile_program(e, {"a": torch.int32})
+    split = compile_predicate(e, {"a": torch.int32})
+    assert isinstance(split, SplitProgram)
+
+    def parts(p):
+        return ([p] if isinstance(p, Program)
+                else parts(p.left) + parts(p.right))
+
+    assert len(parts(split)) > 1
+    assert all(p.n_ops <= MAX_OPS and len(p.fconst) <= MAX_CONSTS
+               for p in parts(split))
+    a = torch.arange(100, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        pb.predicate_bitmap(split, [a])
+    np.testing.assert_array_equal(
+        ref.unpack_bitmap(pb.predicate_words(split, {"a": a}), 100).numpy(),
+        np.arange(100) < MAX_OPS - 1)
 
 
 # ---- grouped_agg's regime choice (the CUDA launches it plans run only on

@@ -33,6 +33,14 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+def test_the_rules_cover_the_cost_based_modules():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if p.name != "chip_smoke.py"}
+    assert {"compiler/multitable.py", "compiler/compile.py",
+            "core/optimum.py", "core/cost.py", "core/engine.py",
+            "core/runtime.py", "core/simulator.py"} <= names
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_reference_imports(path):
@@ -137,10 +145,11 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_chip_smoke_phases_run_on_the_cpu():
     """The script's checks at a small size through the plain versions: sf=10
     with 6000-row partitions has the card run's 100 lineitem partitions over
-    4 nodes, so the power-0.1 split check is exercised too, the compiler
-    phase runs Q18's HAVING on a second catalog clustered by l_orderkey, and
-    the §4.2 phase cuts every partition's words out of unaligned batch
-    words."""
+    4 nodes, so the power-0.1 split check is exercised too, the costed
+    phase runs every query's cost-based frontier, the corrector loop, the
+    concurrent run and the oracle splits, the compiler phase runs Q18's
+    HAVING on a second catalog clustered by l_orderkey, and the §4.2 phase
+    cuts every partition's words out of unaligned batch words."""
     import importlib.util
     import time
     from repro_torch.queryproc import tpch
@@ -165,9 +174,13 @@ def test_chip_smoke_phases_run_on_the_cpu():
                                                         "grouped_agg"))
     assert all(r["bound_by"] == "bytes" and r["bound_ms"] > 0
                for r in [*records.values(), *extra])
+    pooled = [r for r in extra if "pooled In" in r["shape"]]
+    assert sorted(r["name"] for r in pooled) == [
+        "fused_scan_agg", "fused_scan_shuffle", "predicate_bitmap"]
     # CPU tensors run the plain versions, which count no launch
     zero = dict.fromkeys(records, 0)
     assert smoke.engine_phase(cat, lambda: None) == zero
+    assert smoke.costed_phase(cat, lambda: None) == zero
     ccat = tpch.build_catalog(sf=10, num_nodes=4, rows_per_partition=6000,
                               device="cpu", cluster=smoke.CLUSTER)
     launches, having = smoke.compiler_phase(cat, ccat, host_ms, lambda: None)
