@@ -64,7 +64,28 @@ GPU is present. Phases:
    with shuffle pushdown. Every result is held to the plain operators,
    bitwise. The host-clock time of each ``apply_bitmap_to_cache`` call is
    printed alone (until it returns, and until the card is done).
-7. Prints each kernel's launches in phases 3 to 6 (all must be above 0),
+7. Result cache on the first catalog: every query eager uncached, cold
+   and warm through a fresh ``ResultCache`` (2 GiB), both cached results
+   equal to the uncached one: bitwise, or in rows with sums within
+   ``SUM_RTOL`` when the query's uncached runs also differ in bits (the
+   kernels add f64 sums in atomic order; ``Jitter`` reruns every query
+   uncached as that control and says which held), the warm run's
+   served partitions equal to the ``cache.hit`` counter's move; the device
+   bytes allocated before the fill, after it and after ``clear()``; each
+   query's tightened variant served by containment; Q3 at the default
+   256 MiB budget (evictions); Q6's warm flip at storage power 0.01;
+   appends to a small catalog of its own never serving stale rows (in
+   rows: the claim there is freshness); a §4.2
+   shuffle plan cold and warm, slices and position vectors bitwise.
+8. Faults: every query adaptive under ``CHAOS_SPEC`` (seed: the query's
+   number) with ``RetryPolicy(sleep_scale=0.0)`` and a ``CircuitBreaker``,
+   equal to its clean run (under the same control), ``n_pushdown +
+   n_demoted == n_admitted``, the ``faults.*`` counters equal to the
+   plan's ledger; the §4.2 shuffle
+   plans of Q3 and Q18 (``fused_scan_shuffle``, ``hash_partition``)
+   split under the same plan; Q6 under a certain pushdown crash; the
+   fail-to-error baseline raising ``FaultExhausted``.
+9. Prints each kernel's launches in phases 3 to 8 (all must be above 0),
    the per-kernel JSON line and, last, the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -103,6 +124,11 @@ PR14_ADAPTIVE_LOW = {"Q1": (36, 64, 599_001_920), "Q3": (60, 72, 865_100_164),
 CLUSTER = {"lineitem": "l_orderkey"}
 NODES, RPP = 4, 600_000       # storage nodes; rows of a lineitem partition
 SHUFFLE_TARGETS = 4           # compute nodes of the §4.2 shuffle
+CACHE_BUDGET = 2 << 30        # holds one query's pushed results (Q8 eager
+#                               ships the most, 1,270,490,848 bytes)
+CHAOS_SPEC = "crash:0.25,timeout:0.15,transient:0.2,straggler:0.2:0.001"
+CONTROL_RUNS = 16             # uncached runs that may show a query's f64
+#                               sums moving before "rows" is accepted
 POOLED_VALUES = 512           # multitable.DOMAIN_MAX_VALUES, the longest
 #                               In list the cost-based lowering makes
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
@@ -518,11 +544,16 @@ def split_route_check(cat):
     """A nine-column AND (one column past a program's eight: two programs,
     their words combined with ``&``) through the executor over lineitem's
     partitions, as a filter and as a count by partition over the kept
-    rows, held to ``compile_expr`` over the whole columns."""
+    rows, and through the op shims ``ops.fused_scan_agg`` and
+    ``ops.fused_scan_shuffle`` over the whole columns, held to
+    ``compile_expr``'s mask."""
     from repro_torch import kernels
     from repro_torch.core.executor import compile_push_plan
     from repro_torch.core.plan import PushPlan
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
     from repro_torch.kernels.program import SplitProgram, program_for
+    from repro_torch.queryproc import operators as ops
     from repro_torch.queryproc.expressions import Col, compile_expr
     from repro_torch.queryproc.table import ColumnTable
 
@@ -557,6 +588,37 @@ def split_route_check(cat):
     print(f"kernel: nine-column AND through the split route, R="
           f"{li['l_orderkey'].shape[0]}, kept={want.shape[0]}, filter and "
           f"count in {wall:.4f} s, launches {n}")
+
+    # the op shims take the same route: words part by part, then the
+    # program-free launches over the kept rows (every row's target from
+    # hash_partition), held to independent torch over the mask
+    mask = compile_expr(pred)(li)
+    G, keys = 600, li["l_orderkey"]
+    ids = (keys % G).to(torch.int32)
+    vals = cat.scan_table("lineitem", ["l_extendedprice"]).cols[
+        "l_extendedprice"]
+    kernels.reset_launches()
+    sums, cnt = kops.fused_scan_agg(li, pred, ids, vals, G)
+    words, pids, hist = kops.fused_scan_shuffle(li, pred, keys,
+                                                SHUFFLE_TARGETS)
+    n = kernels.launches()
+    want_pids = ops.hash_partition_ids(keys, SHUFFLE_TARGETS)
+    want_sums = torch.zeros(G, dtype=torch.float64, device=keys.device
+                            ).index_add_(0, ids[mask].long(), vals[mask])
+    check(torch.equal(cnt.long(), torch.bincount(ids[mask], minlength=G))
+          and torch.equal(words, ref.pack_bitmap(mask))
+          and torch.equal(pids, want_pids)
+          and torch.equal(hist.long(), torch.bincount(
+              want_pids[mask], minlength=SHUFFLE_TARGETS))
+          and max_diff(sums, want_sums) <= SUM_RTOL * float(
+              want_sums.abs().max()),
+          "nine-column AND through the op shims differs")
+    check(not on_card or n == {**dict.fromkeys(n, 0), "predicate_bitmap": 4,
+                               "fused_scan_agg": 1, "hash_partition": 1,
+                               "fused_scan_shuffle": 1},
+          f"nine-column AND through the op shims: launches {n}")
+    print(f"kernel: nine-column AND through the op shims (fused_scan_agg, "
+          f"G={G}; fused_scan_shuffle, P={SHUFFLE_TARGETS}), launches {n}")
 
 
 # ------------------------------------------------------------ engine phase
@@ -1039,12 +1101,35 @@ def same_rows(a, b) -> bool:
                           sort_table(b.select(cols), cols)))
 
 
+def launch_counting(sync):
+    """(drive, launches, host_s). ``drive(fn, *args, **kwargs)`` runs
+    ``fn`` with the kernels' launch counts zeroed just before and adds
+    them to ``launches`` just after, so checks between driven calls are
+    not counted; ``host_s`` gets the host-clock seconds until ``fn``
+    returned ("call") and until the card was done ("done")."""
+    from repro_torch import kernels
+    launches = {n: 0 for n in kernels.WRAPPERS}
+    host_s = {}
+
+    def drive(fn, *args, **kwargs):
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        host_s["call"] = time.perf_counter() - t0
+        sync()
+        host_s["done"] = time.perf_counter() - t0
+        for n, c in kernels.launches().items():
+            launches[n] += c
+        return out
+    return drive, launches, host_s
+
+
 def section42_phase(cat, sync):
     """The §4.2 operators over the catalog, held to the plain operators.
     Each driven step runs with the launch counts zeroed just before it and
     read just after; the checks between the steps are not counted. Returns
     the counts summed over the steps."""
-    from repro_torch import kernels
     from repro_torch.core import bitmap, shuffle
     from repro_torch.core.cost import StorageResources
     from repro_torch.core.engine import (EngineConfig, plan_requests,
@@ -1056,24 +1141,7 @@ def section42_phase(cat, sync):
     from repro_torch.queryproc import operators as ops
     from repro_torch.queryproc import queries
 
-    launches = {n: 0 for n in kernels.WRAPPERS}
-    host_s = {}
-
-    def drive(fn, *args, **kwargs):
-        """Run ``fn`` with the counts zeroed just before; ``host_s`` gets
-        the host-clock seconds until it returned and until the card was
-        done."""
-        sync()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        host_s["call"] = time.perf_counter() - t0
-        sync()
-        host_s["done"] = time.perf_counter() - t0
-        for n, c in kernels.launches().items():
-            launches[n] += c
-        return out
-
+    drive, launches, host_s = launch_counting(sync)
     n = SHUFFLE_TARGETS
     parts = [p.data for p in cat.partitions_of("lineitem")]
     plans = {q: queries.build_query(q).plans["lineitem"]
@@ -1218,6 +1286,415 @@ def section42_phase(cat, sync):
     return launches
 
 
+# ------------------------------------------------------------ cache phase
+def agree(a, b) -> str:
+    """How two results of one query agree: "bitwise" (``identical``), or
+    "rows" when the columns, dtypes and row multiset agree with floats
+    within ``SUM_RTOL`` (f64 sums accumulate in the kernels' atomic order,
+    which can move their last bits from one run to the next); "" when
+    they differ."""
+    from repro_torch.core.engine import results_equal
+    if identical(a, b):
+        return "bitwise"
+    same = list(a.cols) == list(b.cols) and all(
+        a.cols[c].dtype == b.cols[c].dtype for c in a.cols)
+    return "rows" if same and results_equal(a, b, tol=SUM_RTOL) else ""
+
+
+class Jitter:
+    """The control for one query's results: does its uncached result move
+    in its last bits from run to run? The kernels add f64 sums with
+    atomics in scheduling order, so it may. ``rerun()`` returns a fresh
+    uncached result. The first rerun is made for every query
+    (``control``). A result that agrees with the first run only in rows
+    is accepted when the query's uncached runs also differ in bits:
+    already in the control, or in one of the up to ``CONTROL_RUNS`` runs
+    made then."""
+
+    def __init__(self, first, rerun):
+        self.first, self.rerun = first, rerun
+        self.runs = 2
+        self.moved = not identical(first, rerun())
+        self.control = "differ" if self.moved else "bitwise"
+
+    def holds(self, got) -> str:
+        """"bitwise", "rows" (backed by the control) or ""."""
+        how = agree(self.first, got)
+        while how == "rows" and not self.moved and self.runs < CONTROL_RUNS:
+            self.runs += 1
+            self.moved = not identical(self.first, self.rerun())
+        return how if how == "bitwise" or self.moved else ""
+
+    def __str__(self) -> str:
+        return (f"uncached x2 {self.control}"
+                + (f", moved within {self.runs} uncached runs"
+                   if self.moved and self.control == "bitwise" else ""))
+
+
+def tightened(query, cat, plan_keys):
+    """The query with each containment-eligible plan's predicate ANDed
+    with ``col >= the column's minimum``: tighter in syntax, the same rows
+    in fact, so the cache serves it by containment. None when no plan is
+    eligible."""
+    from repro_torch.queryproc import expressions as ex
+    plans = dict(query.plans)
+    for table, plan in query.plans.items():
+        if plan_keys(plan).shape is None:
+            continue
+        col = sorted(ex.columns_of(plan.predicate))[0]
+        lo = min(p.data.stats()[col].min for p in cat.partitions_of(table))
+        plans[table] = dataclasses.replace(plan, predicate=ex.And(
+            plan.predicate, ex.Cmp(">=", ex.Col(col), lo)))
+    return (dataclasses.replace(query, plans=plans)
+            if plans != query.plans else None)
+
+
+def owned_copies(cache) -> int:
+    """The allocator's slack over a cache's device bytes when every entry
+    owns its tensors: each tensor's block is rounded to 512 bytes, and a
+    block of 1 MiB or more may keep up to 1 MiB it was not split from.
+    Checks that no cached tensor is a view into a larger one (a batch it
+    was sliced from), then returns the slack."""
+    slack = 0
+    for e in cache._entries.values():
+        tensors = list(e.result.cols.values())
+        for k, x in e.aux.items():
+            if k == "shuffle_parts":
+                tensors += [v for p in x for v in p.cols.values()]
+            else:
+                tensors.append(x)
+        for t in tensors:
+            n = t.numel() * t.element_size()
+            check(t.untyped_storage().nbytes() == n,
+                  f"cache: a cached tensor of {n} bytes is a view into "
+                  f"{t.untyped_storage().nbytes()}")
+            slack += 1024 + (1 << 20 if n >= 1 << 20 else 0)
+    return slack
+
+
+def cache_phase(cat, sync):
+    """The pushed-result cache on the catalog's device: every query eager
+    uncached, cold and warm, then its tightened variant served by
+    containment; one query at the default budget (evictions); Q6's warm
+    flip at storage power 0.01; appends to a small catalog of its own; a
+    §4.2 shuffle plan cold and warm. Returns the launch counts of the
+    driven runs."""
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, run_query
+    from repro_torch.core.executor import compile_push_plan
+    from repro_torch.core.result_cache import (DEFAULT_BUDGET_BYTES,
+                                               ResultCache, plan_keys)
+    from repro_torch.obs import metrics
+    from repro_torch.queryproc import queries, tpch
+    from repro_torch.queryproc.table import ColumnTable
+
+    on_card = cat.device.type == "cuda"
+    drive, launches, host_s = launch_counting(sync)
+    prev = metrics.set_metrics(metrics.Metrics())
+    counters = metrics.get_metrics().snapshot
+
+    def count(name):
+        return counters()["counters"].get(name, 0.0)
+
+    def mem():
+        gc.collect()
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    def cfg(cache=None, mode="eager", power=1.0):
+        return EngineConfig(res=StorageResources(storage_power=power),
+                            mode=mode, device=cat.device, result_cache=cache)
+    peaks = [0.0]
+    try:
+        n_bitwise = n_control = 0
+        for qid in QUERY_IDS:
+            q = queries.build_query(qid)
+            base = drive(run_query, q, cat, cfg())
+            t_base = host_s["done"]
+            jit = Jitter(base.result,
+                         lambda: drive(run_query, q, cat, cfg()).result)
+            n_control += jit.control == "bitwise"
+            cache = ResultCache(CACHE_BUDGET)
+            before = mem()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            cold = drive(run_query, q, cat, cfg(cache))
+            t_cold = host_s["done"]
+            h0 = count("cache.hit")
+            warm = drive(run_query, q, cat, cfg(cache))
+            t_warm = host_s["done"]
+            hit = count("cache.hit") - h0
+            how = [jit.holds(r.result) for r in (cold, warm)]
+            check(all(how), f"cache {qid}: cold/warm differ from uncached "
+                  f"({[agree(base.result, r.result) for r in (cold, warm)]}"
+                  f", {jit})")
+            n_bitwise += how == ["bitwise", "bitwise"]
+            check(warm.cache_hits == hit > 0,
+                  f"cache {qid}: {warm.cache_hits} served, cache.hit moved "
+                  f"{hit}")
+            check(cold.cache_hits == 0, f"cache {qid}: cold run served")
+            check(cold.real_net_bytes == base.real_net_bytes,
+                  f"cache {qid}: cold run shipped other bytes")
+            stats = cache.stats()
+            held_limit = stats["bytes"] + owned_copies(cache)
+            variant = tightened(q, cat, plan_keys)
+            contained = "none eligible"
+            if variant is not None:
+                want = drive(run_query, variant, cat, cfg())
+                vjit = Jitter(want.result, lambda: drive(
+                    run_query, variant, cat, cfg()).result)
+                c0 = count("cache.hit.containment")
+                got = drive(run_query, variant, cat, cfg(cache))
+                n_cont = count("cache.hit.containment") - c0
+                how_c = vjit.holds(got.result)
+                contained = (f"{int(n_cont)} partitions served, "
+                             f"{how_c or agree(want.result, got.result)} "
+                             f"({vjit})")
+                check(n_cont > 0 and how_c,
+                      f"cache {qid}: tightened variant not served by "
+                      f"containment, or it differs")
+                del want, got, vjit
+            if on_card:
+                peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            peak = f"{peaks[-1]:.2f} GB" if on_card else "not measured"
+            warm_bytes = warm.real_net_bytes
+            del cold, warm
+            filled = mem()
+            cache.clear()
+            cleared = mem()
+            if on_card:
+                check(filled - before <= held_limit and cleared == before,
+                      f"cache {qid}: allocated {before} before the fill, "
+                      f"{filled} after (at most {held_limit}), {cleared} "
+                      f"after clear()")
+            print(f"cache: {qid} eager walls (single runs) uncached_s="
+                  f"{t_base:.4f} cold_s={t_cold:.4f} warm_s={t_warm:.4f} "
+                  f"served={int(hit)} entries={stats['entries']} "
+                  f"device_bytes={stats['bytes']} real_net_bytes="
+                  f"{base.real_net_bytes} (warm {warm_bytes}) "
+                  f"agree={'/'.join(how)} ({jit}) containment: "
+                  f"{contained}; "
+                  f"allocated before/filled/cleared {before}/{filled}/"
+                  f"{cleared} peak={peak}")
+            del base
+        print(f"cache: {n_bitwise} of {len(QUERY_IDS)} queries bitwise in "
+              f"both cached runs, the others in rows with sums within rtol "
+              f"{SUM_RTOL}; control: {n_control} of {len(QUERY_IDS)} "
+              f"queries' two uncached runs bitwise, and every query agreeing "
+              f"in rows alone moved between uncached runs; peak over the "
+              f"cold/warm/containment runs "
+              f"{f'{max(peaks):.2f} GB' if on_card else 'not measured'}")
+
+        q = queries.build_query("Q3")
+        base = drive(run_query, q, cat, cfg())
+        jit = Jitter(base.result,
+                     lambda: drive(run_query, q, cat, cfg()).result)
+        # the default budget holds about half of Q3's pushed bytes at
+        # sf=1000; the CPU rehearsal's small catalogs take half of theirs
+        cache = ResultCache(DEFAULT_BUDGET_BYTES if on_card
+                            else base.real_net_bytes // 2)
+        e0 = count("cache.evict")
+        before = mem()
+        runs = [drive(run_query, q, cat, cfg(cache)) for _ in range(2)]
+        evicted = count("cache.evict") - e0
+        how = [jit.holds(r.result) for r in runs]
+        check(evicted > 0 and cache.bytes <= cache.budget_bytes and all(how),
+              f"eviction: {evicted} evictions, {cache.bytes} bytes, "
+              f"results {how} ({jit})")
+        served, n = runs[1].cache_hits, len(runs[1].outcomes)
+        del runs
+        # the surviving entries must not keep the evicted ones' batches
+        held = mem() - before
+        check(not on_card or held <= cache.bytes + owned_copies(cache),
+              f"eviction: {held} bytes allocated for {cache.bytes} cached")
+        print(f"cache eviction: Q3 eager at {cache.budget_bytes} bytes "
+              f"(pushed {base.real_net_bytes}): evicted={int(evicted)} "
+              f"entries={cache.stats()['entries']} bytes={cache.bytes} "
+              f"allocated for them {held if on_card else 'not measured'}, "
+              f"warm served={served} of {n}, results {'/'.join(how)} "
+              f"({jit})")
+        del base, cache
+
+        cache = ResultCache(CACHE_BUDGET)
+        q6 = queries.build_query("Q6")
+        base = drive(run_query, q6, cat, cfg(None, "eager", 0.01))
+        jit = Jitter(base.result, lambda: drive(
+            run_query, q6, cat, cfg(None, "eager", 0.01)).result)
+        flips = [drive(run_query, q6, cat, cfg(cache, mode, 0.01))
+                 for mode in ("adaptive", "eager", "adaptive")]
+        n = len(flips[0].outcomes)
+        check(flips[0].n_admitted == 0 and flips[0].n_pushed_back == n,
+              f"warm flip: cold adaptive admitted {flips[0].n_admitted}")
+        how = [jit.holds(f.result) for f in flips]
+        check(flips[2].n_admitted == n == flips[2].cache_hits and all(how),
+              f"warm flip: warm adaptive admitted {flips[2].n_admitted}, "
+              f"served {flips[2].cache_hits} of {n}, results {how} ({jit})")
+        print(f"cache warm flip: Q6 at storage_power 0.01: cold adaptive "
+              f"{flips[0].n_admitted}/{flips[0].n_pushed_back}, warm "
+              f"adaptive {flips[2].n_admitted}/{flips[2].n_pushed_back} "
+              f"with {flips[2].cache_hits} served; walls (single runs) "
+              f"warm_s={host_s['done']:.4f}; results {'/'.join(how)} "
+              f"({jit})")
+        del flips, cache, base
+
+        small = tpch.build_catalog(sf=2.0, seed=1, num_nodes=2,
+                                   rows_per_partition=3000, device=cat.device)
+        s0 = count("cache.evict.stale")
+        n_rows = 0
+        for qid in QUERY_IDS:
+            q = queries.build_query(qid)
+            cache = ResultCache(CACHE_BUDGET)
+            drive(run_query, q, small, cfg(cache))
+            table = sorted(q.plans)[0]
+            part = small.tables[table][0]
+            small.append_to_partition(table, 0, ColumnTable(
+                {c: v[-1:] for c, v in part.data.cols.items()}))
+            want = drive(run_query, q, small, cfg())
+            for ctx in ("post-append", "refilled"):
+                got = drive(run_query, q, small, cfg(cache))
+                how = agree(want.result, got.result)
+                check(bool(how),
+                      f"invalidation {qid} {ctx}: stale rows served")
+                n_rows += how == "rows"
+        stale = count("cache.evict.stale") - s0
+        check(stale >= len(QUERY_IDS), f"invalidation: {stale} stale "
+              f"evictions over {len(QUERY_IDS)} appends")
+        print(f"cache invalidation: 15 queries, one append each on an "
+              f"sf=2 catalog, stale_evictions={int(stale)}, no stale rows "
+              f"({n_rows} of 30 cached runs equal in rows alone)")
+        del small
+
+        q = queries.build_query("Q3")
+        plan = compile_push_plan(shuffle_plan(q, "lineitem", SHUFFLE_TARGETS))
+        parts = cat.partitions_of("lineitem")
+        tabs = [p.data for p in parts]
+        want = drive(plan.execute_batch_parts, tabs)
+        cache = ResultCache(CACHE_BUDGET)
+        for ctx in ("cold", "warm"):
+            got = drive(plan.execute_batch_parts, tabs, cache=cache,
+                        parts=parts)
+            for p, (w, wa, g, ga) in enumerate(zip(*want, *got)):
+                check(identical(w, g) and torch.equal(
+                    wa["position_vector"], ga["position_vector"]) and all(
+                    identical(a, b) for a, b in zip(wa["shuffle_parts"],
+                                                    ga["shuffle_parts"])),
+                      f"shuffle plan {ctx} partition {p}: differs")
+            served = sum(1 for a in got[1] if a.get("cache") == "exact")
+            check(served == (len(parts) if ctx == "warm" else 0),
+                  f"shuffle plan {ctx}: {served} served")
+        print(f"cache shuffle plan: Q3 lineitem by l_orderkey into "
+              f"{SHUFFLE_TARGETS} targets, cold and warm held bitwise "
+              f"(slices, position vectors); entries={cache.stats()['entries']}"
+              f" device_bytes={cache.bytes}")
+    finally:
+        metrics.set_metrics(prev)
+    return launches
+
+
+# ------------------------------------------------------------ fault phase
+def fault_phase(cat, sync):
+    """Every query adaptive under the four fault kinds, each held to its
+    clean run and its counters to the plan's ledger; the shuffle plans of
+    Q3's and Q18's lineitem split under the same kinds; Q6 under a certain
+    pushdown crash (every admitted group demoted); the fail-to-error
+    baseline. Returns the launch counts of the driven runs."""
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core import runtime
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, plan_requests, run_query
+    from repro_torch.core.faults import (CircuitBreaker, FaultExhausted,
+                                         FaultPlan, RetryPolicy)
+    from repro_torch.obs import metrics
+    from repro_torch.queryproc import queries
+
+    drive, launches, host_s = launch_counting(sync)
+
+    def cfg(plan=None, retry=RetryPolicy(sleep_scale=0.0)):
+        return EngineConfig(res=StorageResources(storage_power=1.0),
+                            mode="adaptive", device=cat.device, faults=plan,
+                            retry=retry, breaker=CircuitBreaker())
+    prev = metrics.get_metrics()
+    try:
+        for qid in QUERY_IDS:
+            q = queries.build_query(qid)
+            clean = drive(run_query, q, cat, cfg())
+            t_clean = host_s["done"]
+            jit = Jitter(clean.result,
+                         lambda: drive(run_query, q, cat, cfg()).result)
+            plan = FaultPlan.from_spec(CHAOS_SPEC, seed=int(qid[1:]))
+            metrics.set_metrics(metrics.Metrics())
+            run = drive(run_query, q, cat, cfg(plan))
+            wall = host_s["done"]
+            counted = metrics.get_metrics().snapshot()["counters"]
+            how = jit.holds(run.result)
+            n_pd = sum(1 for o in run.outcomes if o.path == "pushdown")
+            check(bool(how), f"faults {qid}: result differs from clean "
+                  f"({agree(clean.result, run.result)}, {jit})")
+            check(n_pd + run.n_demoted == run.n_admitted,
+                  f"faults {qid}: {n_pd} pushed down + {run.n_demoted} "
+                  f"demoted != {run.n_admitted} admitted")
+            check(all(counted.get(f"faults.{k}", 0) == n
+                      for k, n in plan.counts().items()),
+                  f"faults {qid}: counters {counted} against the ledger "
+                  f"{plan.counts()}")
+            rec = run.recovery or {}
+            print(f"faults: {qid} adaptive 1.0 {CHAOS_SPEC} seed={qid[1:]}: "
+                  f"injected={plan.counts()} retries={rec.get('retries', 0)}"
+                  f" demoted={rec.get('n_demoted', 0)} of "
+                  f"{run.n_admitted} admitted, walls (single runs) "
+                  f"chaos_s={wall:.4f} clean_s={t_clean:.4f}, agree={how} "
+                  f"({jit})")
+        for qid in ("Q3", "Q18"):
+            # a §4.2 shuffle plan's requests split under the same plan:
+            # Q3's filter through fused_scan_shuffle, Q18's partial
+            # aggregate hashed by hash_partition, on either path
+            q = queries.build_query(qid)
+            plan = shuffle_plan(q, "lineitem", SHUFFLE_TARGETS)
+            reqs = [dataclasses.replace(r, plan=plan)
+                    for r in plan_requests(q, cat) if r.table == "lineitem"]
+            clean = drive(runtime.execute_split, reqs, {})
+            jit = Jitter(clean.merged["lineitem"], lambda: drive(
+                runtime.execute_split, reqs, {}).merged["lineitem"])
+            fplan = FaultPlan.from_spec(CHAOS_SPEC, seed=int(qid[1:]))
+            got = drive(runtime.execute_split, reqs, {}, faults=fplan,
+                        retry=RetryPolicy(sleep_scale=0.0))
+            how = jit.holds(got.merged["lineitem"])
+            check(bool(how) and got.n_pushdown + got.n_demoted == len(reqs)
+                  and got.faults_injected == sum(fplan.counts().values()),
+                  f"faults: {qid} shuffle plan under {CHAOS_SPEC} differs")
+            print(f"faults: {qid} lineitem shuffle plan by {plan.shuffle[0]} "
+                  f"into {SHUFFLE_TARGETS} targets, all pushdown: injected="
+                  f"{fplan.counts()} retries={got.retries} demoted="
+                  f"{got.n_demoted} of {len(reqs)}, result {how} ({jit})")
+        metrics.set_metrics(metrics.Metrics())
+        q6 = queries.build_query("Q6")
+        clean = drive(run_query, q6, cat, cfg())
+        jit = Jitter(clean.result,
+                     lambda: drive(run_query, q6, cat, cfg()).result)
+        plan = FaultPlan.from_spec("pushdown.crash:1.0", seed=1)
+        run = drive(run_query, q6, cat, cfg(plan))
+        wall = host_s["done"]
+        how = jit.holds(run.result)
+        check(run.n_admitted > 0 and run.n_demoted == run.n_admitted
+              and all(o.path == "pushback" for o in run.outcomes)
+              and bool(how),
+              f"faults: certain crash demoted {run.n_demoted} of "
+              f"{run.n_admitted}, result {how} ({jit})")
+        print(f"faults: Q6 pushdown.crash:1.0 demoted all {run.n_demoted} "
+              f"admitted requests to pushback, result {how} ({jit}), "
+              f"wall_s={wall:.4f}")
+        try:
+            drive(run_query, q6, cat, cfg(plan, RetryPolicy(
+                sleep_scale=0.0, demote_on_exhaust=False)))
+        except FaultExhausted as exc:
+            print(f"faults: fail-to-error baseline raised: {exc}")
+        else:
+            check(False, "faults: demote_on_exhaust=False did not raise")
+    finally:
+        metrics.set_metrics(prev)
+    return launches
+
+
 def print_records(recs, names) -> None:
     """One line per kernel record; ``names`` label records that carry no
     ``name`` of their own."""
@@ -1304,12 +1781,21 @@ def main() -> int:
     sec42 = section42_phase(cat, torch.cuda.synchronize)
     print(f"section 4.2 phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
-    launches = {n: engine[n] + costed[n] + comp[n] + sec42[n]
-                for n in records}
+
+    t0 = time.perf_counter()
+    cached = cache_phase(cat, torch.cuda.synchronize)
+    print(f"cache phase: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    faulted = fault_phase(cat, torch.cuda.synchronize)
+    print(f"fault phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
+    launches = {n: engine[n] + costed[n] + comp[n] + sec42[n] + cached[n]
+                + faulted[n] for n in records}
     print("kernels: " + "; ".join(
         f"{n} check=ok launches={launches[n]} (engine {engine[n]}, costed "
-        f"{costed[n]}, compiler {comp[n]}, section 4.2 {sec42[n]})"
-        for n in records))
+        f"{costed[n]}, compiler {comp[n]}, section 4.2 {sec42[n]}, cache "
+        f"{cached[n]}, faults {faulted[n]})" for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -2,8 +2,8 @@
 """Time the alternatives of the redesigned kernels on one GPU.
 
     python3 profile_kernels.py {grouped_agg,predicate_bitmap,fused_scan_agg,
-                                bitmap_apply,fused_scan_shuffle,engine}
-                               [--seed 0]
+                                bitmap_apply,fused_scan_shuffle,engine,
+                                cache} [--seed 0] [--repeats 5]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 ``repro_torch`` comes from ``PYTHONPATH`` when it is found there, else from
@@ -51,12 +51,22 @@ Prints the card's name and power limit.
   chip_smoke times them. Each line gives every wall, their median,
   the caching allocator's device allocations, frees and retries and the
   full collections of Python's cyclic GC over the line's runs; also the host time of ``compile_query("Q1")``.
+- ``cache``: on the same catalog, every compiled query eager at storage
+  power 1.0, uncached and warm from a ``ResultCache`` it filled first,
+  each run once untimed and then ``--repeats`` times with
+  ``gc.collect()`` before each timed run: the walls, their medians, the
+  ratio of the medians and one run's device time (``torch.profiler``, the
+  sum over kernels); for Q1, Q3 and Q14 the host functions with the most
+  self time in one uncached and one warm run (``cProfile``).
 """
 from __future__ import annotations
 
 import argparse
+import cProfile
+import dataclasses
 import gc
 import os
+import pstats
 import statistics
 import subprocess
 import sys
@@ -400,14 +410,83 @@ def time_engine(dev, seed, repeats):
           warm=False)
 
 
+def time_cache(dev, seed, repeats):
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, run_query
+    from repro_torch.core.result_cache import ResultCache
+    from repro_torch.kernels import _build
+    from repro_torch.queryproc import queries
+
+    _build.build_all()
+    cat = lineitem_catalog(dev, seed)
+    for p in cat.iter_partitions():
+        p.data.stats()
+    cfg = EngineConfig(res=StorageResources(storage_power=1.0), mode="eager",
+                       device=dev)
+
+    def timed(fn):
+        ts = []
+        for _ in range(repeats):
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return ts
+
+    def device_ms(fn):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total
+                   for e in prof.key_averages()) / 1e3
+
+    def host_top(fn, n=8):
+        pr = cProfile.Profile()
+        pr.enable()
+        fn()
+        torch.cuda.synchronize()
+        pr.disable()
+        st = pstats.Stats(pr)
+        rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:n]
+        return "; ".join(f"{os.path.basename(f)}:{name} {tt * 1e3:.2f} ms"
+                         for (f, _l, name), (_c, _n, tt, _ct, _cl) in rows)
+
+    for qid in QUERY_IDS:
+        q = queries.build_query(qid)
+        cache = ResultCache(2 << 30)
+        warm_cfg = dataclasses.replace(cfg, result_cache=cache)
+        run_query(q, cat, cfg)
+        uncached = timed(lambda: run_query(q, cat, cfg))
+        run_query(q, cat, warm_cfg)
+        warm = timed(lambda: run_query(q, cat, warm_cfg))
+        mu, mw = statistics.median(uncached), statistics.median(warm)
+        print(f"cache {qid} eager: uncached walls_s="
+              f"{[round(t, 4) for t in uncached]} median_s={mu:.4f}; warm "
+              f"walls_s={[round(t, 4) for t in warm]} median_s={mw:.4f}; "
+              f"warm/uncached={mw / mu:.3f}; device_ms uncached "
+              f"{device_ms(lambda: run_query(q, cat, cfg)):.3f} warm "
+              f"{device_ms(lambda: run_query(q, cat, warm_cfg)):.3f}")
+        if qid in ("Q1", "Q3", "Q14"):
+            for label, c in (("uncached", cfg), ("warm", warm_cfg)):
+                print(f"cache {qid} {label} host top by self time: "
+                      f"{host_top(lambda: run_query(q, cat, c))}")
+        cache.clear()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap",
                                        "fused_scan_agg", "bitmap_apply",
-                                       "fused_scan_shuffle", "engine"))
+                                       "fused_scan_shuffle", "engine",
+                                       "cache"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=5,
-                    help="timed runs a configuration (engine)")
+                    help="timed runs a configuration (engine, cache)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -429,6 +508,8 @@ def main() -> int:
         time_fused_scan_shuffle(dev, args.seed)
     elif args.kernel == "engine":
         time_engine(dev, args.seed, args.repeats)
+    elif args.kernel == "cache":
+        time_cache(dev, args.seed, args.repeats)
     else:
         time_grouped_agg(dev, torch.Generator(device=dev).manual_seed(
             args.seed), torch.cuda.get_device_properties(dev)

@@ -83,7 +83,7 @@ class RequestCost:
 
 
 def cut_score(cost: RequestCost, res: StorageResources,
-              has_operator_work: bool) -> float:
+              has_operator_work: bool, cache_hit: bool = False) -> float:
     """What the cost-based frontier chooser minimizes per request: the
     predicted storage-side operator CPU plus the result-ship time (``s_out``
     over the per-stream share). The scan term is the same for every
@@ -93,8 +93,15 @@ def cut_score(cost: RequestCost, res: StorageResources,
     ``scan`` cut): the storage node streams the accessed columns without
     running an operator, so it pays ship time only. That is what makes a
     partial aggregate over a high-NDV group key (Q18: partials about as
-    many as the input rows) lose to cutting at the scan."""
-    cpu = cost.t_compute(res) if has_operator_work else 0.0
+    many as the input rows) lose to cutting at the scan.
+
+    ``cache_hit`` zeroes the CPU term: a warm entry of the pushed-result
+    cache (``core.result_cache``) ships its bytes without running the
+    operators again, so only the ship time remains. ``plan_requests``
+    makes the same collapse per request (``compute_in=0`` and the entry's
+    bytes as ``s_out``)."""
+    cpu = (cost.t_compute(res)
+           if has_operator_work and not cache_hit else 0.0)
     return cpu + cost.s_out / res.stream_bw
 
 

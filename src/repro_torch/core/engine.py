@@ -12,9 +12,13 @@ what they need). For one query the engine:
 
 With a ``CardinalityCorrector`` in the config, every request's ``s_out``
 is rescaled by the ratios learned so far, and every run feeds its real
-pushdown bytes back. ``run_concurrent`` arbitrates several queries'
-requests together (§6.2's PA-aware experiment); ``theoretical_split`` is
-the §3.1 oracle split of one query (Fig 7).
+pushdown bytes back. With a ``ResultCache``, warm partitions arbitrate
+with ``compute_in=0`` and the cached bytes as ``s_out`` and are served
+instead of run. With a ``FaultPlan``, every request group runs through
+the runtime's retry/demote loop; results stay the same under any
+schedule. ``run_concurrent`` arbitrates several queries' requests
+together (§6.2's PA-aware experiment); ``theoretical_split`` is the §3.1
+oracle split of one query (Fig 7).
 
 Modes: no_pushdown / eager / adaptive / adaptive_pa (§6.2 baselines).
 """
@@ -29,17 +33,21 @@ import torch
 from repro_torch.core import optimum, runtime
 from repro_torch.core.cost import (CardinalityCorrector, RequestCost,
                                    StorageResources)
-from repro_torch.core.executor import compile_push_plan
+from repro_torch.core.executor import (EXECUTOR_BATCHED, EXECUTOR_REFERENCE,
+                                       compile_push_plan)
 from repro_torch.core.plan import PushPlan, plan_signature
 from repro_torch.core.simulator import (MODE_ADAPTIVE, MODES, SimRequest,
                                         SimResult, simulate)
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import get_metrics
 from repro_torch.queryproc.table import ColumnTable
 from repro_torch.storage.catalog import Catalog, Partition
 
 __all__ = ["MODES", "EngineConfig", "PlannedRequest", "QueryRun",
-           "compile_and_run", "plan_requests", "run_concurrent", "run_query",
-           "results_equal", "theoretical_split"]
+           "compile_and_run", "execute_requests", "plan_requests",
+           "run_concurrent", "run_query", "results_equal",
+           "theoretical_split"]
 
 
 @dataclasses.dataclass
@@ -52,6 +60,19 @@ class EngineConfig:
     # online s_out correction: requests are costed with its ratios, and
     # every run feeds its real pushdown bytes back (results never change)
     corrector: Optional[CardinalityCorrector] = None
+    executor: str = EXECUTOR_BATCHED  # or "reference": the per-partition
+    #                                   oracle (results identical)
+    # a core.result_cache.ResultCache: storage-side pushdown serves and
+    # fills it per partition, and plan_requests probes it, so a warm
+    # partition arbitrates with compute_in=0 and its known result bytes
+    result_cache: Optional[object] = None
+    # core.faults: with a FaultPlan (here or from REPRO_FAULT_SPEC) every
+    # group retries under `retry` (default RetryPolicy) and exhausted
+    # pushdown groups demote to pushback; a CircuitBreaker feeds the
+    # Arbitrator. None of them set: the fault-free path
+    faults: Optional[object] = None       # faults.FaultPlan
+    retry: Optional[object] = None        # faults.RetryPolicy
+    breaker: Optional[object] = None      # faults.CircuitBreaker
 
 
 @dataclasses.dataclass
@@ -80,31 +101,67 @@ class QueryRun:
     real_net_bytes: float = 0.0
     net_bytes_recon: Optional[Dict] = None
     outcomes: Optional[List[runtime.RequestOutcome]] = None
+    # n_demoted, retries, faults_injected; None on a run no fault touched
+    recovery: Optional[Dict] = None
 
     @property
     def t_total(self) -> float:
         return self.t_pushable + self.t_nonpushable
 
+    @property
+    def cache_hits(self) -> int:
+        """Pushdown partitions the result cache served."""
+        return sum(1 for o in (self.outcomes or ()) if o.cache)
+
+    @property
+    def n_demoted(self) -> int:
+        """Admitted pushdown requests recovered by demotion to pushback."""
+        return sum(1 for o in (self.outcomes or ()) if o.demoted)
+
 
 def plan_requests(query, catalog: Catalog, start_id: int = 0,
-                  corrector: Optional[CardinalityCorrector] = None
-                  ) -> List[PlannedRequest]:
+                  corrector: Optional[CardinalityCorrector] = None,
+                  cache=None) -> List[PlannedRequest]:
     """One costed request per partition of every table the query scans,
-    numbered from ``start_id``; ``corrector`` rescales each ``s_out``."""
-    out: List[PlannedRequest] = []
-    rid = start_id
-    for table, plan in query.plans.items():
-        cplan = compile_push_plan(plan)
-        sig = plan_signature(plan)
-        for part in catalog.partitions_of(table):
-            cost = cplan.estimate_cost(part)
-            raw = cost.s_out
-            if corrector is not None:
-                cost = corrector.correct(query.qid, table, sig, cost)
-            out.append(PlannedRequest(rid, query.qid, table, part, plan,
-                                      cost, s_out_raw=raw))
-            rid += 1
+    numbered from ``start_id``; ``corrector`` rescales each ``s_out``.
+    A partition ``cache`` holds a result for costs nothing to compute and
+    ships the cached bytes (the corrector is skipped: nothing is
+    estimated)."""
+    tr = obs_trace.get_tracer()
+    with tr.span("plan_requests", qid=query.qid) as sp:
+        out: List[PlannedRequest] = []
+        rid = start_id
+        n_warm = 0
+        for table, plan in query.plans.items():
+            cplan = compile_push_plan(plan)
+            sig = plan_signature(plan)
+            for part in catalog.partitions_of(table):
+                cost = cplan.estimate_cost(part)
+                raw = cost.s_out
+                hint = (cache.cost_hint(cplan, part)
+                        if cache is not None else None)
+                if hint is not None:
+                    cost = dataclasses.replace(cost, compute_in=0,
+                                               s_out=max(64, int(hint)))
+                    n_warm += 1
+                elif corrector is not None:
+                    cost = corrector.correct(query.qid, table, sig, cost)
+                out.append(PlannedRequest(rid, query.qid, table, part, plan,
+                                          cost, s_out_raw=raw))
+                rid += 1
+        if tr.enabled:
+            sp.set(n_requests=len(out), n_tables=len(query.plans),
+                   est_s_out=sum(r.cost.s_out for r in out),
+                   n_cache_warm=n_warm)
     return out
+
+
+def execute_requests(reqs: List[PlannedRequest],
+                     executor: str = EXECUTOR_BATCHED
+                     ) -> Dict[str, ColumnTable]:
+    """Every request storage-side, merged per table in request order (the
+    split's merge with every request pushed down)."""
+    return runtime.execute_split(reqs, {}, executor=executor).merged
 
 
 def nonpushable_time(merged: Dict[str, ColumnTable], cfg: EngineConfig
@@ -121,21 +178,55 @@ def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
                  ) -> QueryRun:
     """Execute the split ``sim`` decided for ``reqs``, feed the corrector,
     run the residual and reconcile the bytes."""
-    split = runtime.execute_split(reqs, sim.decisions(), bitmaps)
-    if split.n_pushdown != sim.admitted(query.qid):
+    tr = obs_trace.get_tracer()
+    split = runtime.execute_split(reqs, sim.decisions(), bitmaps,
+                                  executor=cfg.executor,
+                                  cache=cfg.result_cache, faults=cfg.faults,
+                                  retry=cfg.retry, breaker=cfg.breaker)
+    # one decision vector, two uses: every admitted request ran pushdown
+    # or, its retries exhausted, was demoted to pushback
+    admitted = sim.admitted(query.qid)
+    if split.n_pushdown + split.n_demoted != admitted:
         raise RuntimeError(f"{query.qid}: executed {split.n_pushdown} "
-                           f"pushdowns, arbitrated {sim.admitted(query.qid)}")
+                           f"pushdowns and {split.n_demoted} demotions, "
+                           f"arbitrated {admitted}")
     if cfg.corrector is not None:
         runtime.feed_corrector(cfg.corrector, query.qid, reqs, split.outcomes)
-    result = runtime.run_residual(query, split.merged)
+    with tr.span("residual_compute", qid=query.qid):
+        result = runtime.run_residual(query, split.merged)
+    m = get_metrics()
+    m.counter("engine.queries").inc()
+    m.counter("engine.requests.pushdown").inc(split.n_pushdown)
+    m.counter("engine.requests.pushback").inc(len(reqs) - split.n_pushdown)
+    m.counter("engine.net_bytes.real").inc(split.real_net_bytes)
+    n_hit = sum(1 for o in split.outcomes if o.cache)
+    if n_hit:
+        m.counter("engine.cache_hits").inc(n_hit)
+    if split.n_demoted:
+        m.counter("engine.requests.demoted").inc(split.n_demoted)
+    recovery = None
+    if split.n_demoted or split.retries or split.faults_injected:
+        recovery = {"n_demoted": split.n_demoted, "retries": split.retries,
+                    "faults_injected": split.faults_injected}
     return QueryRun(
         qid=query.qid, result=result, sim=sim, t_pushable=t_pushable,
         t_nonpushable=nonpushable_time(split.merged, cfg), requests=reqs,
-        net_bytes=net_bytes, n_admitted=sim.admitted(query.qid),
+        net_bytes=net_bytes, n_admitted=admitted,
         n_pushed_back=sim.pushed_back_by_query.get(query.qid, 0),
         real_net_bytes=split.real_net_bytes,
         net_bytes_recon=runtime.reconcile_net_bytes(sim, reqs, split),
-        outcomes=split.outcomes)
+        outcomes=split.outcomes, recovery=recovery)
+
+
+def _set_query_attrs(qs, run: QueryRun) -> None:
+    """Roll the run's accounting up onto its ``query`` span."""
+    recon = run.net_bytes_recon or {}
+    qs.set(real_net_bytes=float(run.real_net_bytes),
+           sim_net_bytes=float(run.net_bytes),
+           n_pushdown=run.n_admitted, n_pushback=run.n_pushed_back,
+           t_pushable=run.t_pushable, t_nonpushable=run.t_nonpushable,
+           s_out_est_ratio=recon.get("s_out_estimate_ratio"),
+           cache_hits=run.cache_hits, net_bytes_recon=recon)
 
 
 def _check_catalog(catalog: Catalog, cfg: EngineConfig) -> None:
@@ -143,6 +234,9 @@ def _check_catalog(catalog: Catalog, cfg: EngineConfig) -> None:
     if catalog.device != dev:
         raise ValueError(f"catalog lives on {catalog.device}, the engine is "
                          f"configured for {dev}")
+    if cfg.executor == EXECUTOR_REFERENCE and dev.type != "cpu":
+        raise ValueError("the reference executor is the CPU oracle; the "
+                         "card runs the batched executor")
 
 
 def run_query(query, catalog: Catalog, cfg: EngineConfig,
@@ -154,12 +248,18 @@ def run_query(query, catalog: Catalog, cfg: EngineConfig,
     ``core.bitmap.rewrite_all``); ``bitmaps`` maps request ids to the
     packed words their ``apply_bitmap`` plans filter with."""
     _check_catalog(catalog, cfg)
-    reqs = requests if requests is not None else plan_requests(
-        query, catalog, corrector=cfg.corrector)
-    sim = simulate([SimRequest(r.req_id, r.part.node_id, query.qid, r.cost)
-                    for r in reqs], cfg.res, cfg.mode)
-    return _run_decided(query, reqs, sim, cfg, sim.makespan, sim.net_bytes,
-                        bitmaps)
+    tr = obs_trace.get_tracer()
+    with tr.span("query", qid=query.qid, mode=cfg.mode) as qs:
+        reqs = requests if requests is not None else plan_requests(
+            query, catalog, corrector=cfg.corrector, cache=cfg.result_cache)
+        sim = simulate([SimRequest(r.req_id, r.part.node_id, query.qid,
+                                   r.cost) for r in reqs],
+                       cfg.res, cfg.mode, breaker=cfg.breaker)
+        run = _run_decided(query, reqs, sim, cfg, sim.makespan,
+                           sim.net_bytes, bitmaps)
+        if tr.enabled:
+            _set_query_attrs(qs, run)
+    return run
 
 
 def run_concurrent(queries, catalog: Catalog, cfg: EngineConfig
@@ -172,13 +272,24 @@ def run_concurrent(queries, catalog: Catalog, cfg: EngineConfig
     all_reqs: List[PlannedRequest] = []
     for q in queries:
         all_reqs.extend(plan_requests(q, catalog, start_id=len(all_reqs),
-                                      corrector=cfg.corrector))
+                                      corrector=cfg.corrector,
+                                      cache=cfg.result_cache))
     sim = simulate([SimRequest(r.req_id, r.part.node_id, r.query_id, r.cost)
-                    for r in all_reqs], cfg.res, cfg.mode)
-    return {q.qid: _run_decided(
-        q, [r for r in all_reqs if r.query_id == q.qid], sim, cfg,
-        t_pushable=sim.finish_by_query[q.qid],
-        net_bytes=sim.net_bytes_by_query[q.qid]) for q in queries}
+                    for r in all_reqs], cfg.res, cfg.mode,
+                   breaker=cfg.breaker)
+    tr = obs_trace.get_tracer()
+    out: Dict[str, QueryRun] = {}
+    for q in queries:
+        with tr.span("query", qid=q.qid, mode=cfg.mode,
+                     concurrent=True) as qs:
+            run = _run_decided(
+                q, [r for r in all_reqs if r.query_id == q.qid], sim, cfg,
+                t_pushable=sim.finish_by_query[q.qid],
+                net_bytes=sim.net_bytes_by_query[q.qid])
+            if tr.enabled:
+                _set_query_attrs(qs, run)
+        out[q.qid] = run
+    return out
 
 
 def compile_and_run(qid: str, catalog: Catalog, cfg: EngineConfig,

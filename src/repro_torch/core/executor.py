@@ -49,6 +49,14 @@ returns each partition's result and its §4.2 by-products (``aux``).
 Output dtypes follow the reference (int32 keys, f64 sums, int64 counts,
 min/max in the column's type), so the bytes a pushdown ships are the
 reference's.
+
+With a result cache (``core.result_cache.ResultCache``) and the catalog
+partitions, ``execute_batch_parts`` serves the cached partitions, runs the
+misses as one smaller batch, fills the cache from their per-partition
+results and returns everything in partition order: a partition's result
+does not depend on which others share its batch. A containment serve
+re-filters a cached superset with ``refilter``, the filter stage's
+``predicate_bitmap`` words and gather.
 """
 from __future__ import annotations
 
@@ -71,6 +79,10 @@ from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc import operators as qops
 from repro_torch.queryproc.table import ColumnTable
 from repro_torch.storage.catalog import Partition
+
+
+EXECUTOR_BATCHED = "batched"      # one fused device pass per (table, plan)
+EXECUTOR_REFERENCE = "reference"  # plan.execute_push_plan per partition
 
 
 def _word_counts(lens: Sequence[int]) -> List[int]:
@@ -184,18 +196,65 @@ class CompiledPushPlan:
     def estimate_cost(self, part: Partition) -> RequestCost:
         return estimate_cost(self.plan, part, self.sel_fn, self.having_sel_fn)
 
+    def execute(self, data: ColumnTable,
+                bitmap: Optional[torch.Tensor] = None
+                ) -> Tuple[ColumnTable, Dict]:
+        """One partition's ``(result, aux)`` through the batch pass."""
+        parts, aux = self.execute_batch_parts(
+            [data], None if bitmap is None else [bitmap])
+        return parts[0], aux[0]
+
     def execute_batch_parts(self, tables: Sequence[ColumnTable],
-                            bitmaps: Optional[Sequence[torch.Tensor]] = None
+                            bitmaps: Optional[Sequence[torch.Tensor]] = None,
+                            cache=None, parts: Optional[Sequence] = None
                             ) -> Tuple[List[ColumnTable], List[Dict]]:
         """(per-partition results, per-partition aux dicts) of one fused
         pass over ``tables``. ``bitmaps`` are the partitions' packed words
         for an ``apply_bitmap`` plan. An aux dict holds ``bitmap`` (int32
         words) for ``bitmap_only`` plans and ``shuffle_parts`` plus
-        ``position_vector`` (int32) for ``shuffle`` plans."""
+        ``position_vector`` (int32) for ``shuffle`` plans. With ``cache``
+        and ``parts`` (each table's catalog ``Partition``), cached
+        partitions are served (their aux dict marked ``"cache"``) and only
+        the misses run; ``apply_bitmap`` plans are never cached."""
+        if cache is not None and parts is not None \
+                and not self.plan.apply_bitmap:
+            return self._run_batch_cached(tables, cache, parts)
         out, bounds, aux = self._run_batch(tables, bitmaps)
         return [ColumnTable({c: v[bounds[p]:bounds[p + 1]]
                              for c, v in out.cols.items()})
                 for p in range(len(tables))], aux
+
+    def _run_batch_cached(self, tables: Sequence[ColumnTable], cache,
+                          parts: Sequence
+                          ) -> Tuple[List[ColumnTable], List[Dict]]:
+        """Serve the cached partitions, run the misses as one batch, fill
+        the cache from their results; partition order is kept."""
+        if len(parts) != len(tables):
+            raise ValueError("one catalog partition per table")
+        res: List[Optional[ColumnTable]] = [None] * len(tables)
+        auxs: List[Dict] = [{} for _ in tables]
+        miss: List[int] = []
+        for i, part in enumerate(parts):
+            hit = cache.serve(self, part)
+            if hit is None:
+                miss.append(i)
+            else:
+                res[i], auxs[i] = hit[0], hit[1]
+        if miss:
+            got, aux = self.execute_batch_parts([tables[i] for i in miss])
+            for j, i in enumerate(miss):
+                res[i], auxs[i] = got[j], aux[j]
+                cache.put(self, parts[i], got[j], aux[j])
+        return res, auxs
+
+    def refilter(self, t: ColumnTable) -> ColumnTable:
+        """The rows of ``t`` that pass this plan's predicate, in order: the
+        filter stage (``predicate_bitmap`` words, then one gather) over a
+        table that holds the predicate's columns, such as a cached
+        looser-predicate result of the same partition."""
+        words = pbk.predicate_words(self.program(t.cols), t.cols)
+        return t.take(torch.nonzero(
+            qops.unpack_bitmap(words, len(t))).flatten())
 
     def _run_batch(self, tables: Sequence[ColumnTable],
                    bitmaps: Optional[Sequence[torch.Tensor]]

@@ -1,7 +1,8 @@
 """Pushable sub-plans and their per-partition request cost.
 
 Port of ``repro.core.plan`` (``PushPlan``, ``accessed_columns``,
-``plan_signature``, ``batchable_stages``, ``estimate_cost``). A
+``plan_signature``, ``batchable_stages``, ``execute_push_plan``,
+``estimate_cost``). A
 ``PushPlan`` is the paper's pushdown-amenable operator set for one table:
 projection, selection, derived columns, partial grouped/scalar
 aggregation, HAVING over it, top-k, and the §4.2 shuffle and selection
@@ -10,10 +11,14 @@ bitmaps.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.core.cost import RequestCost
 from repro_torch.queryproc import expressions as ex
+from repro_torch.queryproc import operators as ops
+from repro_torch.queryproc.table import ColumnTable
 from repro_torch.storage.catalog import Partition
 
 
@@ -96,6 +101,53 @@ def batchable_stages(plan: PushPlan, shuffle_key: Optional[str] = None
     if plan.shuffle is not None or shuffle_key is not None:
         stages.append("shuffle")
     return tuple(stages)
+
+
+def execute_push_plan(plan: PushPlan, data: ColumnTable,
+                      bitmap: Optional[torch.Tensor] = None
+                      ) -> Tuple[ColumnTable, Dict]:
+    """Run the pushable sub-plan on one partition, operator by operator:
+    the per-partition oracle of the batch executor (``EngineConfig(
+    executor="reference")``). Returns ``(result, aux)``, aux carrying the
+    bitmap and shuffle by-products. CPU tensors only: on the card the
+    batched executor's kernels run the plan."""
+    if any(v.is_cuda for v in data.cols.values()):
+        raise ValueError("execute_push_plan is the CPU oracle; run the "
+                         "batched executor on the card")
+    t = data
+    aux: Dict[str, object] = {}
+    if plan.apply_bitmap:
+        if bitmap is None:
+            raise ValueError("an apply_bitmap plan needs the compute "
+                             "layer's bitmap")
+        t = ops.apply_bitmap(t, bitmap)
+    elif plan.predicate is not None:
+        if plan.bitmap_only:
+            words = ops.selection_bitmap(t, plan.predicate)
+            aux["bitmap"] = words
+            t = ops.apply_bitmap(t, words)
+        else:
+            t = ops.filter_table(t, plan.predicate)
+    if plan.derive:
+        cols = dict(t.cols)
+        for name, incols, fn in plan.derive:
+            cols[name] = fn(*[cols[c] for c in incols])
+        t = ColumnTable(cols)
+    if plan.agg is not None:
+        keys, aggs = plan.agg
+        t = ops.grouped_agg(t, list(keys), {o: (f, c) for o, f, c in aggs})
+        if plan.having is not None:
+            t = ops.filter_table(t, plan.having)
+    elif plan.columns:
+        t = t.select([c for c in plan.columns if c in t.cols])
+    if plan.top_k is not None:
+        col, k, asc = plan.top_k
+        t = ops.top_k(t, col, k, asc)
+    if plan.shuffle is not None:
+        key, n = plan.shuffle
+        aux["shuffle_parts"] = ops.shuffle_partition(t, key, n)
+        aux["position_vector"] = ops.position_vector(t, key, n)
+    return t, aux
 
 
 _AGG_OUT_ROWS = 4096  # conservative group-count cap for partial aggs

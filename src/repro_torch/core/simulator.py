@@ -1,7 +1,8 @@
 """Deterministic fluid discrete-event simulator of the storage layer.
 
 Port of ``repro.core.simulator`` (without measured load and tracing); its
-decisions equal the reference's exactly. ``decisions`` fixes every
+decisions equal the reference's exactly, a shared circuit breaker's
+routing included. ``decisions`` fixes every
 request's path up front: the §3.1 oracle that ``core.optimum`` evaluates.
 Every task is a sequence of (resource, bytes) stages; resources serve the
 active tasks at deterministic rates; events fire when the earliest stage
@@ -120,9 +121,12 @@ class _ForcedArbitrator:
 
 def simulate(requests: List[SimRequest], res: StorageResources,
              mode: str = MODE_ADAPTIVE,
-             decisions: Optional[Dict[int, str]] = None) -> SimResult:
+             decisions: Optional[Dict[int, str]] = None,
+             breaker=None) -> SimResult:
     """Run the requests through every node's Arbitrator in ``mode``, or
-    down the paths ``decisions`` fixes (req_id -> path) when given."""
+    down the paths ``decisions`` fixes (req_id -> path) when given.
+    ``breaker`` (a ``core.faults.CircuitBreaker``) is shared by every
+    node's Arbitrator."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     nodes = sorted({r.node_id for r in requests})
@@ -131,7 +135,8 @@ def simulate(requests: List[SimRequest], res: StorageResources,
         arbs = {n: _ForcedArbitrator(res, decisions) for n in nodes}
     else:
         arbs = {n: Arbitrator(res, pa_aware=(mode == MODE_ADAPTIVE_PA),
-                              forced_path=forced) for n in nodes}
+                              forced_path=forced, node_id=n,
+                              breaker=breaker) for n in nodes}
     by_id = {r.req_id: r for r in requests}
     pending = sorted(requests, key=lambda r: (r.arrival, r.req_id))
     active: List[TaskState] = []

@@ -1,13 +1,14 @@
 """Predicate expression trees: torch evaluation + selectivity estimation.
 
-Port of ``repro.queryproc.expressions``. The numpy engine compares a
-column with a constant under numpy's promotion rules (NEP 50: a Python
-scalar is "weak", so an f32 column meets ``0.05`` in f32 while an i32
-column meets it in f64). Torch promotes differently (an i32 tensor meets a
-Python float in f32), so every comparison here first casts both sides to
-``compare_dtype`` — the one place the port states numpy's rules. The
-kernels' postfix programs (``repro_torch.kernels.program``) use the same
-function, so the GPU and the numpy engine select the same rows.
+Port of ``repro.queryproc.expressions``, ``implies`` included. The numpy
+engine compares a column with a constant under numpy's promotion rules
+(NEP 50: a Python scalar is "weak", so an f32 column meets ``0.05`` in
+f32 while an i32 column meets it in f64). Torch promotes differently (an
+i32 tensor meets a Python float in f32), so every comparison here first
+casts both sides to ``compare_dtype`` — the one place the port states
+numpy's rules. The kernels' postfix programs
+(``repro_torch.kernels.program``) use the same function, so the GPU and
+the numpy engine select the same rows.
 """
 from __future__ import annotations
 
@@ -151,6 +152,78 @@ def compile_expr(expr: Expr) -> Callable[[Dict[str, torch.Tensor]],
         lf, rf = compile_expr(expr.left), compile_expr(expr.right)
         return lambda cols: lf(cols) | rf(cols)
     raise TypeError(expr)
+
+
+# leaf arithmetic of ``implies``: numpy's comparisons of the plan's Python
+# constants, as the reference makes them
+_NP_CMP = {"<=": np.less_equal, "<": np.less, ">=": np.greater_equal,
+           ">": np.greater, "==": np.equal}
+
+
+def implies(a, b) -> bool:
+    """Conservative implication: True means every row satisfying ``a``
+    also satisfies ``b``; False means "could not prove". ``None`` is the
+    vacuous predicate (all rows), so anything implies ``None`` and ``None``
+    implies only ``None``. An ``And`` antecedent proves through either
+    side, an ``Or`` antecedent through both; leaves compare intervals and
+    memberships over one column. The result cache (``core.result_cache``)
+    asks it whether a cached looser-predicate result can serve a tighter
+    request after a re-filter."""
+    if b is None:
+        return True
+    if a is None:
+        return False
+    if repr(a) == repr(b):
+        return True
+    if isinstance(b, And):
+        return implies(a, b.left) and implies(a, b.right)
+    if isinstance(a, And):
+        # either conjunct alone proving b suffices (both hold on a's rows)
+        if implies(a.left, b) or implies(a.right, b):
+            return True
+    if isinstance(a, Or):
+        return implies(a.left, b) and implies(a.right, b)
+    if isinstance(b, Or):
+        return implies(a, b.left) or implies(a, b.right)
+    return _atom_implies(a, b)
+
+
+def _atom_implies(a: Expr, b: Expr) -> bool:
+    """Leaf-level implication between two atoms over the *same* column."""
+    if isinstance(a, And) or isinstance(b, And):
+        return False  # an unproven conjunct pair reaching a leaf b
+    col_a = a.col.name if isinstance(a, (Cmp, In)) else None
+    col_b = b.col.name if isinstance(b, (Cmp, In)) else None
+    if col_a is None or col_a != col_b:
+        return False
+    # column-column compares carry no interval: repr equality (done) only
+    if (isinstance(a, Cmp) and isinstance(a.value, Col)) or \
+            (isinstance(b, Cmp) and isinstance(b.value, Col)):
+        return False
+    if isinstance(a, In) and isinstance(b, In):
+        return set(a.values) <= set(b.values)
+    if isinstance(a, In) and isinstance(b, Cmp):
+        op = _NP_CMP[b.op]
+        return all(bool(op(v, b.value)) for v in a.values)
+    if isinstance(a, Cmp) and isinstance(b, In):
+        return a.op == "==" and a.value in b.values
+    if isinstance(a, Cmp) and isinstance(b, Cmp):
+        va, vb = a.value, b.value
+        if b.op in ("<", "<="):
+            if a.op == "<" and va <= vb:
+                return True
+            if a.op == "<=" and (va < vb if b.op == "<" else va <= vb):
+                return True
+            return a.op == "==" and bool(_NP_CMP[b.op](va, vb))
+        if b.op in (">", ">="):
+            if a.op == ">" and va >= vb:
+                return True
+            if a.op == ">=" and (va > vb if b.op == ">" else va >= vb):
+                return True
+            return a.op == "==" and bool(_NP_CMP[b.op](va, vb))
+        if b.op == "==":
+            return a.op == "==" and va == vb
+    return False
 
 
 def columns_of(expr: Expr) -> set:

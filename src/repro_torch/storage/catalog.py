@@ -25,6 +25,10 @@ class Partition:
     index: int          # partition number within the table
     node_id: int        # storage node that owns it
     data: ColumnTable
+    # monotone version stamp: every append or update bumps it, so a cached
+    # derivation of this partition's bytes (``core.result_cache`` keys its
+    # entries by it) detects staleness without hashing the contents
+    version: int = 0
 
 
 @dataclasses.dataclass
@@ -86,6 +90,28 @@ class Catalog:
             node.partitions.append(part)
             parts.append(part)
         self.tables[name] = parts
+
+    def append_to_partition(self, table: str, index: int,
+                            rows: ColumnTable) -> Partition:
+        """Append ``rows`` (on the catalog's device) to one partition and
+        bump its version stamp. The partition gets new column tensors, so
+        its column stats are computed anew from the new bytes. Appended
+        rows must keep a clustered table's group locality (no cluster-key
+        value owned by another partition)."""
+        part = self.tables[table][index]
+        part.data = ColumnTable({c: torch.cat([v, rows.cols[c]])
+                                 for c, v in part.data.cols.items()})
+        part.version += 1
+        return part
+
+    def update_partition(self, table: str, index: int,
+                         data: ColumnTable) -> Partition:
+        """Replace one partition's bytes wholesale and bump its version
+        stamp (the same staleness contract as ``append_to_partition``)."""
+        part = self.tables[table][index]
+        part.data = data
+        part.version += 1
+        return part
 
     def partitions_of(self, table: str) -> List[Partition]:
         return self.tables[table]

@@ -688,3 +688,125 @@ def test_costed_compile_and_run_on_the_card_matches_the_cpu(cuda, qid):
         assert g.sim.decisions() == c.sim.decisions()
         assert g.real_net_bytes == c.real_net_bytes
         assert g.net_bytes_recon == c.net_bytes_recon
+
+
+def _and9_columns(R, device):
+    rng = np.random.default_rng(R + 9)
+    return {f"c{i}": torch.from_numpy(rng.integers(-1, 30, R).astype(
+        np.int32)).to(device) for i in range(9)}
+
+
+def _and9():
+    e = Col("c0") >= 0
+    for i in range(1, 9):
+        e = e & (Col(f"c{i}") >= 0)
+    return e
+
+
+@pytest.mark.parametrize("R", (1, 33, 100_003))
+def test_op_shims_take_a_split_predicate_on_the_card(cuda, R):
+    """The nine-column AND through ``ops.fused_scan_agg`` and
+    ``ops.fused_scan_shuffle`` on the card, against the same shims on the
+    CPU (the plain versions): two ``predicate_bitmap`` launches, then the
+    program-free kernels over the kept rows."""
+    rng = np.random.default_rng(R)
+    ids = rng.integers(0, 37, R).astype(np.int32)
+    vals = rng.uniform(0, 10, R).astype(np.float32)
+    keys = rng.integers(-2 ** 31, 2 ** 31 - 1, R, dtype=np.int32)
+    out = {}
+    for dev in (cuda, "cpu"):
+        cols = _and9_columns(R, dev)
+        kernels.reset_launches()
+        agg = kops.fused_scan_agg(cols, _and9(),
+                                  torch.from_numpy(ids).to(dev),
+                                  torch.from_numpy(vals).to(dev), 37)
+        shuf = kops.fused_scan_shuffle(cols, _and9(),
+                                       torch.from_numpy(keys).to(dev), 4)
+        out[str(dev)] = [t.cpu() for t in (*agg, *shuf)], kernels.launches()
+    (g, n), (c, _) = out["cuda"], out["cpu"]
+    assert n["predicate_bitmap"] == 4 and n["hash_partition"] == 1
+    assert n["fused_scan_agg"] == 1 and n["fused_scan_shuffle"] == 1
+    torch.testing.assert_close(g[0], c[0], rtol=1e-5, atol=0.0)  # f32 sums
+    for a, b in zip(g[1:], c[1:]):
+        assert torch.equal(a, b)
+
+
+def test_cache_containment_serve_on_the_card_matches_the_cpu(cuda,
+                                                             catalogs):
+    """A tighter predicate served from a looser cached entry re-filters
+    the cached device columns with ``predicate_bitmap`` (no plain
+    version): the rows equal the plain route's, and the filter words the
+    CPU's."""
+    from repro_torch.core.plan import PushPlan
+    from repro_torch.core.result_cache import ResultCache
+    from repro_torch.queryproc.expressions import And, Cmp
+    loose = compile_push_plan(PushPlan(
+        "lineitem", ("l_quantity", "l_extendedprice"),
+        predicate=Cmp("<", Col("l_quantity"), 40)))
+    tight = compile_push_plan(dataclasses.replace(
+        loose.plan, predicate=And(loose.plan.predicate,
+                                  Cmp("<", Col("l_quantity"), 20))))
+    gpu, cpu = catalogs
+    served = {}
+    for cat in (gpu, cpu):
+        cache = ResultCache()
+        part = cat.partitions_of("lineitem")[1]
+        cache.put(loose, part, *loose.execute(part.data))
+        kernels.reset_launches()
+        got = cache.serve(tight, part)
+        served[cat.device.type] = got, kernels.launches()
+    (g, n), (c, _) = served["cuda"], served["cpu"]
+    assert g[2] == c[2] == "containment"
+    assert n["predicate_bitmap"] == 1 and sum(n.values()) == 1
+    assert _same(g[0], c[0]) and 0 < len(c[0])
+    assert all(v.device.type == "cuda" for v in g[0].cols.values())
+
+
+def test_chaos_run_on_the_card_matches_its_clean_run(cuda, catalogs):
+    """Every query under the four fault kinds on the card: the clean run's
+    result, the CPU's recovery and outcomes, demoted groups replayed on
+    the kernels."""
+    from repro_torch.core.faults import CircuitBreaker, FaultPlan, RetryPolicy
+    gpu, cpu = catalogs
+    spec = "crash:0.25,timeout:0.15,transient:0.2,straggler:0.2:0.001"
+    demoted = 0
+    for qid in ("Q3", "Q6", "Q12", "Q19"):
+        runs = {}
+        for cat in (gpu, cpu):
+            def cfg(plan):
+                return EngineConfig(mode="adaptive", device=cat.device,
+                                    faults=plan,
+                                    retry=RetryPolicy(sleep_scale=0.0),
+                                    breaker=CircuitBreaker())
+            clean = run_query(queries.build_query(qid), cat, cfg(None))
+            kernels.reset_launches()
+            chaos = run_query(queries.build_query(qid), cat,
+                              cfg(FaultPlan.from_spec(spec, int(qid[1:]))))
+            runs[cat.device.type] = clean, chaos, kernels.launches()
+        (gclean, gchaos, n), (_, cchaos, _) = runs["cuda"], runs["cpu"]
+        assert results_equal(gclean.result, gchaos.result)
+        assert gchaos.recovery == cchaos.recovery
+        assert [dataclasses.astuple(o) for o in gchaos.outcomes] == \
+            [dataclasses.astuple(o) for o in cchaos.outcomes]
+        assert sum(n.values()) > 0
+        demoted += gchaos.n_demoted
+    assert demoted > 0
+
+
+def test_reference_executor_refuses_card_tensors(cuda, catalogs):
+    """The per-partition oracle runs the plain operators: the engine, the
+    split and ``execute_push_plan`` refuse it on a card catalog instead
+    of running the plain versions on the device."""
+    from repro_torch.core import runtime
+    from repro_torch.core.engine import plan_requests
+    from repro_torch.core.plan import execute_push_plan
+    gpu, _ = catalogs
+    query = queries.build_query("Q6")
+    with pytest.raises(ValueError, match="reference executor"):
+        run_query(query, gpu, EngineConfig(device=gpu.device,
+                                           executor="reference"))
+    reqs = plan_requests(query, gpu)
+    with pytest.raises(ValueError, match="CPU oracle"):
+        runtime.execute_split(reqs, {}, executor="reference")
+    with pytest.raises(ValueError, match="CPU oracle"):
+        execute_push_plan(reqs[0].plan, reqs[0].part.data)

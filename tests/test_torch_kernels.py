@@ -249,6 +249,55 @@ def test_fused_scan_shuffle_matches_jax(R, P, with_predicate):
     np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
 
 
+def _and9_inputs(R):
+    rng = np.random.default_rng(R + 9)
+    return {f"c{i}": rng.integers(-1, 30, R).astype(np.int32)
+            for i in range(9)}
+
+
+def _and9(E):
+    """Nine int32 columns, each ``>= 0``, ANDed: past the program's eight
+    columns, so the port splits it into two programs."""
+    e = E.Col("c0") >= 0
+    for i in range(1, 9):
+        e = e & (E.Col(f"c{i}") >= 0)
+    return e
+
+
+@pytest.mark.parametrize("R", ROWS)
+def test_split_predicate_fused_scan_agg_matches_jax(R):
+    cols = _and9_inputs(R)
+    assert isinstance(program_for(_and9(tex), _torch(cols)), SplitProgram)
+    rng = np.random.default_rng(R)
+    ids = rng.integers(0, GROUPS, R).astype(np.int32)
+    vals = rng.uniform(0, 10, R).astype(np.float32)
+    sums, counts = kops.fused_scan_agg(_torch(cols), _and9(tex),
+                                       torch.from_numpy(ids),
+                                       torch.from_numpy(vals), GROUPS)
+    js, jc = jops.fused_scan_agg(_jax(cols), jops.compile_predicate(
+        _and9(rex)), jnp.asarray(ids), jnp.asarray(vals), GROUPS, block=BLOCK)
+    assert sums.dtype == torch.float32 and counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(sums.numpy(), np.asarray(js),
+                               rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("P", TARGETS)
+@pytest.mark.parametrize("R", ROWS)
+def test_split_predicate_fused_scan_shuffle_matches_jax(R, P):
+    cols, keys = _and9_inputs(R), _keys(R)
+    words, pids, hist = kops.fused_scan_shuffle(
+        _torch(cols), _and9(tex), torch.from_numpy(keys), P)
+    jw, jp, jh = jops.fused_scan_shuffle(
+        _jax(cols), jops.compile_predicate(_and9(rex)), jnp.asarray(keys), P,
+        block=BLOCK)
+    assert words.dtype == pids.dtype == hist.dtype == torch.int32
+    np.testing.assert_array_equal(words.numpy().view(np.uint32),
+                                  np.asarray(jw))
+    np.testing.assert_array_equal(pids.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
+
+
 # ------------------------------------------------------ postfix program
 @pytest.fixture(scope="module")
 def tables():

@@ -38,7 +38,9 @@ def test_the_rules_cover_the_cost_based_modules():
              for p in PORT_FILES if p.name != "chip_smoke.py"}
     assert {"compiler/multitable.py", "compiler/compile.py",
             "core/optimum.py", "core/cost.py", "core/engine.py",
-            "core/runtime.py", "core/simulator.py"} <= names
+            "core/runtime.py", "core/simulator.py", "obs/metrics.py",
+            "obs/trace.py", "core/result_cache.py",
+            "core/faults.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -148,8 +150,10 @@ def test_chip_smoke_phases_run_on_the_cpu():
     4 nodes, so the power-0.1 split check is exercised too, the costed
     phase runs every query's cost-based frontier, the corrector loop, the
     concurrent run and the oracle splits, the compiler phase runs Q18's
-    HAVING on a second catalog clustered by l_orderkey, and the §4.2 phase
-    cuts every partition's words out of unaligned batch words."""
+    HAVING on a second catalog clustered by l_orderkey, the §4.2 phase
+    cuts every partition's words out of unaligned batch words, the cache
+    phase runs every query cold, warm and by containment, and the fault
+    phase every query under the chaos plan."""
     import importlib.util
     import time
     from repro_torch.queryproc import tpch
@@ -188,6 +192,8 @@ def test_chip_smoke_phases_run_on_the_cpu():
     assert having["name"] == "predicate_bitmap"
     assert having["bound_by"] == "bytes" and having["bound_ms"] > 0
     assert smoke.section42_phase(cat, lambda: None) == zero
+    assert smoke.cache_phase(cat, lambda: None) == zero
+    assert smoke.fault_phase(cat, lambda: None) == zero
 
 
 def test_chip_smoke_fails_without_a_gpu():
