@@ -85,7 +85,22 @@ GPU is present. Phases:
    plans of Q3 and Q18 (``fused_scan_shuffle``, ``hash_partition``)
    split under the same plan; Q6 under a certain pushdown crash; the
    fail-to-error baseline raising ``FaultExhausted``.
-9. Prints each kernel's launches in phases 3 to 8 (all must be above 0),
+9. Stream: all 15 queries, and Q6 again (``Q6#1``), arriving
+   ``STREAM_GAP_S`` apart through ``repro_torch.core.runtime.run_stream``
+   in the four configs, each result held to its query's uncached
+   ``compile_and_run`` (under the same control), ``n_pushdown +
+   n_demoted`` to the simulation's admitted count and the per-query bytes
+   to the stream's; then the same stream under ``CHAOS_SPEC`` with real
+   sleeps and ``HedgePolicy(fixed_delay_s=HEDGE_DELAY_S)``, whose hedges
+   must fire and add up (``won + lost == launched``). Walls and peak
+   device memory per stream.
+10. Trace: one adaptive stream traced into a ``JsonlStreamWriter`` and a
+   Chrome trace (in a temporary directory) under ``torch.profiler``: each
+   span name's self time (``span_attribution``), the device's busy time
+   and idle share (``1 - busy / wall``) over the same window; then the
+   stream untraced and traced five times each, ``gc.collect()`` before
+   every run, and their medians.
+11. Prints each kernel's launches in phases 3 to 10 (all must be above 0),
    the per-kernel JSON line and, last, the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -127,6 +142,8 @@ SHUFFLE_TARGETS = 4           # compute nodes of the §4.2 shuffle
 CACHE_BUDGET = 2 << 30        # holds one query's pushed results (Q8 eager
 #                               ships the most, 1,270,490,848 bytes)
 CHAOS_SPEC = "crash:0.25,timeout:0.15,transient:0.2,straggler:0.2:0.001"
+STREAM_GAP_S = 0.004          # arrivals of the stream phase's queries
+HEDGE_DELAY_S = 0.002         # the chaos stream's fixed hedge delay
 CONTROL_RUNS = 16             # uncached runs that may show a query's f64
 #                               sums moving before "rows" is accepted
 POOLED_VALUES = 512           # multitable.DOMAIN_MAX_VALUES, the longest
@@ -1695,6 +1712,226 @@ def fault_phase(cat, sync):
     return launches
 
 
+def stream_queries(gap_s: float):
+    """Every compiled query arriving ``gap_s`` apart, and Q6 once more at
+    the end (keyed ``Q6#1``)."""
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core.runtime import StreamQuery
+    from repro_torch.queryproc import queries
+    qids = [*QUERY_IDS, "Q6"]
+    return [StreamQuery(queries.build_query(q), arrival=i * gap_s)
+            for i, q in enumerate(qids)]
+
+
+def stream_phase(cat, sync, card: str = "no card"):
+    """All 15 queries (and Q6 twice) through ``runtime.run_stream`` in the
+    four configs, each query's result held to its own uncached
+    ``compile_and_run`` (``Jitter``), the split to the shared simulation
+    and the bytes to the per-query sums; then a chaos stream under
+    ``CHAOS_SPEC`` with a fixed hedge delay. Each stream starts from a
+    fresh metrics registry, so its Arbitrators read their fluid queues
+    (no queue depth was published yet) and decide the same in every run.
+    ``card`` labels the lines (nvidia-smi's name and power limit). Returns
+    the launch counts of the streams."""
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, compile_and_run
+    from repro_torch.core.faults import (CircuitBreaker, FaultPlan,
+                                         HedgePolicy, RetryPolicy)
+    from repro_torch.core.runtime import run_stream
+    from repro_torch.obs import metrics
+
+    on_card = cat.device.type == "cuda"
+    drive, launches, host_s = launch_counting(sync)
+
+    def config(mode="adaptive", power=1.0, **kw):
+        return EngineConfig(res=StorageResources(storage_power=power),
+                            mode=mode, device=cat.device, **kw)
+    controls = {}
+    for qid in QUERY_IDS:
+        first = compile_and_run(qid, cat, config()).result
+        controls[qid] = Jitter(first, lambda q=qid: compile_and_run(
+            q, cat, config()).result)
+
+    def check_results(run, label):
+        hows = {}
+        for key, res in run.results.items():
+            jit = controls[key.split("#")[0]]
+            how = jit.holds(res)
+            check(bool(how), f"stream {label}: {key} differs from its "
+                  f"uncached run ({agree(jit.first, res)}, {jit})")
+            hows[how] = hows.get(how, 0) + 1
+        check(run.n_pushdown + run.n_demoted == run.sim.admitted()
+              and run.n_pushdown + run.n_pushback == len(run.sim.per_request)
+              and sum(d["real_net_bytes"] for d in run.per_query.values())
+              == run.real_net_bytes,
+              f"stream {label}: split {run.n_pushdown}/{run.n_pushback} "
+              f"(+{run.n_demoted} demoted) against {run.sim.admitted()} "
+              f"admitted, or bytes do not add up")
+        return hows
+
+    def peak():
+        return (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+                if on_card else "not measured")
+    prev = metrics.get_metrics()
+    try:
+        for mode, power in CONFIGS:
+            metrics.set_metrics(metrics.Metrics())
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            run = drive(run_stream, stream_queries(STREAM_GAP_S), cat,
+                        config(mode, power))
+            hows = check_results(run, f"{mode} {power}")
+            check(set(run.results) == {*QUERY_IDS, "Q6#1"},
+                  f"stream {mode} {power}: keys {sorted(run.results)}")
+            print(f"stream: {len(run.results)} queries {mode} "
+                  f"storage_power={power} gap_s={STREAM_GAP_S}: "
+                  f"call_s={host_s['done']:.4f} = t_decide_s="
+                  f"{run.t_decide:.4f} (planning, the fluid simulation) + "
+                  f"wall_clock_s={run.wall_clock:.4f} (execution) "
+                  f"pushdown={run.n_pushdown} pushback={run.n_pushback} "
+                  f"real_net_bytes={run.real_net_bytes} peak={peak()} "
+                  f"agree={hows} [{card}]")
+        metrics.set_metrics(metrics.Metrics())
+        plan = FaultPlan.from_spec(CHAOS_SPEC, seed=18)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        run = drive(run_stream, stream_queries(STREAM_GAP_S), cat, config(
+            faults=plan, retry=RetryPolicy(sleep_scale=1.0),
+            breaker=CircuitBreaker(),
+            hedge=HedgePolicy(fixed_delay_s=HEDGE_DELAY_S)))
+        hows = check_results(run, "chaos")
+        c = metrics.get_metrics().snapshot()["counters"]
+        hedge = {k: int(c.get(f"hedge.{k}", 0))
+                 for k in ("launched", "won", "lost")}
+        check(hedge["launched"] > 0
+              and hedge["won"] + hedge["lost"] == hedge["launched"]
+              and run.hedged == hedge["won"],
+              f"stream chaos: hedge counters {hedge}, {run.hedged} won")
+        check(all(c.get(f"faults.{k}", 0) == n
+                  for k, n in plan.counts().items()),
+              f"stream chaos: counters {c} against {plan.counts()}")
+        print(f"stream: chaos {CHAOS_SPEC} seed=18, RetryPolicy("
+              f"sleep_scale=1.0), HedgePolicy(fixed_delay_s={HEDGE_DELAY_S})"
+              f": wall_s={host_s['done']:.4f} injected={plan.counts()} "
+              f"retries={run.retries} demoted={run.n_demoted} hedge={hedge} "
+              f"exec_samples={int(c.get('stream.exec_samples', 0))} "
+              f"peak={peak()} agree={hows} [{card}]")
+    finally:
+        metrics.set_metrics(prev)
+    return launches
+
+
+def device_busy_s(prof) -> tuple:
+    """(seconds in which the card ran at least one kernel or copy in a
+    ``torch.profiler`` window, the union of the device events' intervals;
+    the number of device events)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6, len(spans)
+
+
+def trace_phase(cat, sync, card: str = "no card", repeats: int = 5):
+    """One adaptive stream of all 15 queries traced, with a
+    ``JsonlStreamWriter`` sink and a Chrome trace exported to a temporary
+    directory, under ``torch.profiler``: each layer's self time from
+    ``span_attribution`` and the card's idle share over the same window;
+    then the same stream untraced and traced ``repeats`` times each, in
+    turns, ``gc.collect()`` before each: what tracing costs when it is
+    on. The profiler records device activity only, so that it adds
+    little host time to the window. ``card`` labels the lines. Returns the
+    launch counts of the traced stream."""
+    import tempfile
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.runtime import run_stream
+    from repro_torch.obs import export, metrics, trace
+
+    on_card = cat.device.type == "cuda"
+    drive, launches, host_s = launch_counting(sync)
+    cfg = EngineConfig(res=StorageResources(storage_power=1.0),
+                       mode="adaptive", device=cat.device)
+    prev = metrics.get_metrics()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            metrics.set_metrics(metrics.Metrics())
+            tr = trace.Tracer()
+            writer = export.JsonlStreamWriter(os.path.join(tmp, "s.jsonl"))
+            tr.attach_sink(writer)
+            prof = (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+                if on_card else contextlib.nullcontext())
+            with prof, trace.tracing(tr):
+                run = drive(run_stream, stream_queries(STREAM_GAP_S), cat, cfg)
+            writer.close()
+            wall = host_s["done"]
+            _, spans = export.from_jsonl(writer.path)
+            chrome = export.to_chrome_trace(tr, os.path.join(tmp, "s.json"))
+            with open(chrome) as fh:
+                n_events = len(json.load(fh)["traceEvents"])
+            check(len(spans) == len(tr.snapshot()) == n_events - 1
+                  and all(s["dur"] is not None for s in spans),
+                  f"trace: {len(spans)} streamed spans, "
+                  f"{len(tr.snapshot())} traced, {n_events} Chrome events")
+            for q in tr.find("query"):
+                shipped = sum(s.attrs["shipped_bytes"] for s in tr.snapshot()
+                              if s.parent == q.sid and s.name in (
+                                  "storage_execute", "compute_replay"))
+                check(shipped == q.attrs["real_net_bytes"] == run.per_query[
+                    q.attrs["qid"]]["real_net_bytes"],
+                    f"trace: {q.attrs['qid']} spans ship {shipped} bytes")
+        print(f"trace: adaptive 1.0 stream of {len(run.results)} queries "
+              f"traced under torch.profiler: wall_s={wall:.4f}, "
+              f"{len(spans)} spans streamed to JSONL and exported as a "
+              f"Chrome trace [{card}]")
+        if on_card:
+            busy, n_dev = device_busy_s(prof)
+            check(busy > 0, f"trace: the profiler saw no device time "
+                  f"({n_dev} device events)")
+            print(f"trace: device busy_s={busy:.6f} ({n_dev} device "
+                  f"events): idle share {1 - busy / wall:.4f} of the call's "
+                  f"{wall:.6f} s, {1 - busy / run.wall_clock:.4f} of the "
+                  f"execution's {run.wall_clock:.6f} s (after t_decide "
+                  f"{run.t_decide:.6f} s) [{card}]")
+        else:
+            print("trace: device idle share not measured (no card)")
+        for r in export.span_attribution(tr):
+            print(f"trace: layer {r['name']} ({r['cat']}) n={r['count']} "
+                  f"self_ms={r['self_s'] * 1e3:.3f} "
+                  f"total_ms={r['total_s'] * 1e3:.3f} [{card}]")
+        walls = {(k, part): [] for k in ("untraced", "traced")
+                 for part in ("call", "execution")}
+        for _ in range(repeats):
+            for kind in ("untraced", "traced"):
+                metrics.set_metrics(metrics.Metrics())
+                gc.collect()
+                sync()
+                t0 = time.perf_counter()
+                with (trace.tracing() if kind == "traced"
+                      else contextlib.nullcontext()):
+                    timed = run_stream(stream_queries(STREAM_GAP_S), cat, cfg)
+                sync()
+                walls[kind, "call"].append(time.perf_counter() - t0)
+                walls[kind, "execution"].append(timed.wall_clock)
+        for part in ("call", "execution"):
+            got = [walls[k, part] for k in ("untraced", "traced")]
+            med = [statistics.median(v) for v in got]
+            print(f"trace: stream {part} walls, median of {repeats}: "
+                  f"untraced_s={med[0]:.4f} traced_s={med[1]:.4f} "
+                  f"(traced/untraced {med[1] / med[0]:.4f}; runs "
+                  f"{', '.join(f'{w:.4f}' for w in got[0])} / "
+                  f"{', '.join(f'{w:.4f}' for w in got[1])}) [{card}]")
+    finally:
+        metrics.set_metrics(prev)
+    return launches
+
+
 def print_records(recs, names) -> None:
     """One line per kernel record; ``names`` label records that carry no
     ``name`` of their own."""
@@ -1790,12 +2027,19 @@ def main() -> int:
     faulted = fault_phase(cat, torch.cuda.synchronize)
     print(f"fault phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
+    t0 = time.perf_counter()
+    streamed = stream_phase(cat, torch.cuda.synchronize, smi[0])
+    print(f"stream phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    traced = trace_phase(cat, torch.cuda.synchronize, smi[0])
+    print(f"trace phase: {time.perf_counter() - t0:.2f} s")
     launches = {n: engine[n] + costed[n] + comp[n] + sec42[n] + cached[n]
-                + faulted[n] for n in records}
+                + faulted[n] + streamed[n] + traced[n] for n in records}
     print("kernels: " + "; ".join(
         f"{n} check=ok launches={launches[n]} (engine {engine[n]}, costed "
         f"{costed[n]}, compiler {comp[n]}, section 4.2 {sec42[n]}, cache "
-        f"{cached[n]}, faults {faulted[n]})" for n in records))
+        f"{cached[n]}, faults {faulted[n]}, stream {streamed[n]}, trace "
+        f"{traced[n]})" for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

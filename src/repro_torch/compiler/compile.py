@@ -33,6 +33,7 @@ from repro_torch.compiler import (analyzer, interpreter, ir, multitable,
 from repro_torch.core.cost import (CardinalityCorrector, StorageResources,
                                    cut_score)
 from repro_torch.core.plan import PushPlan, plan_signature
+from repro_torch.obs import trace as obs_trace
 from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc.expressions import Col
 from repro_torch.queryproc.queries import Query
@@ -147,7 +148,30 @@ def compile_query_costed(qid: str, catalog,
     predicates, score every candidate cut against the catalog, and take
     the cheapest per table (ties to the deeper cut, so equal costs keep
     the maximal frontier). Results equal ``compile_query``'s for every
-    choice: the residual replays whatever is not pushed."""
+    choice: the residual replays whatever is not pushed. Traced, it is one
+    ``compile`` span with a ``cut_scoring`` event per table."""
+    tr = obs_trace.get_tracer()
+    with tr.span("compile", cat="compiler", qid=qid.upper(),
+                 costed=True) as sp:
+        cq = _compile_query_costed(qid, catalog, res, corrector,
+                                   fact_selectivity, compute_bw)
+        if tr.enabled:
+            for ch in cq.cut_report:
+                tr.event("cut_scoring", cat="compiler", table=ch.table,
+                         chosen=ch.chosen, maximal=ch.maximal,
+                         scores=list(ch.scores),
+                         signatures=list(ch.signatures),
+                         bitmap=ch.bitmap, lowered=ch.lowered)
+            sp.set(n_tables=len(cq.cut_report),
+                   frontier=cq.frontier_signature())
+    return cq
+
+
+def _compile_query_costed(qid: str, catalog,
+                          res: Optional[StorageResources],
+                          corrector: Optional[CardinalityCorrector],
+                          fact_selectivity: Optional[float],
+                          compute_bw: float) -> CompiledQuery:
     res = res if res is not None else StorageResources()
     root = tpch_ir.build_ir(qid)
     if fact_selectivity is not None and "lineitem" in ir.base_tables(root):

@@ -18,7 +18,11 @@ instead of run. With a ``FaultPlan``, every request group runs through
 the runtime's retry/demote loop; results stay the same under any
 schedule. ``run_concurrent`` arbitrates several queries' requests
 together (§6.2's PA-aware experiment); ``theoretical_split`` is the §3.1
-oracle split of one query (Fig 7).
+oracle split of one query (Fig 7); ``core.runtime.run_stream`` drives
+an arrival-timed stream of queries on worker pools. With
+``measured_feedback`` (the default) the Arbitrator's backlog guard reads
+the queue depths a running stream publishes, and its fluid queue where
+none was published.
 
 Modes: no_pushdown / eager / adaptive / adaptive_pa (§6.2 baselines).
 """
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import optimum, runtime
+from repro_torch.core.arbitrator import MeasuredLoad
 from repro_torch.core.cost import (CardinalityCorrector, RequestCost,
                                    StorageResources)
 from repro_torch.core.executor import (EXECUTOR_BATCHED, EXECUTOR_REFERENCE,
@@ -66,12 +71,18 @@ class EngineConfig:
     # fills it per partition, and plan_requests probes it, so a warm
     # partition arbitrates with compute_in=0 and its known result bytes
     result_cache: Optional[object] = None
+    # arbitrate over the measured queue depths run_stream publishes every
+    # dispatch wave (arbitrator.MeasuredLoad); a node never published
+    # falls back to the fluid queue, and False is the fluid model alone
+    measured_feedback: bool = True
     # core.faults: with a FaultPlan (here or from REPRO_FAULT_SPEC) every
     # group retries under `retry` (default RetryPolicy) and exhausted
     # pushdown groups demote to pushback; a CircuitBreaker feeds the
-    # Arbitrator. None of them set: the fault-free path
+    # Arbitrator; a HedgePolicy hedges run_stream's pushdown stragglers.
+    # None of them set: the fault-free path
     faults: Optional[object] = None       # faults.FaultPlan
     retry: Optional[object] = None        # faults.RetryPolicy
+    hedge: Optional[object] = None        # faults.HedgePolicy (run_stream)
     breaker: Optional[object] = None      # faults.CircuitBreaker
 
 
@@ -152,8 +163,16 @@ def plan_requests(query, catalog: Catalog, start_id: int = 0,
         if tr.enabled:
             sp.set(n_requests=len(out), n_tables=len(query.plans),
                    est_s_out=sum(r.cost.s_out for r in out),
-                   n_cache_warm=n_warm)
+                   n_cache_warm=n_warm,
+                   # the corrector's state as these estimates used it
+                   corrector_state=(corrector.state(query.qid)
+                                    if corrector is not None else None))
     return out
+
+
+def _measured_of(cfg: EngineConfig) -> Optional[MeasuredLoad]:
+    """The measured-load source, when the config asks for it."""
+    return MeasuredLoad() if cfg.measured_feedback else None
 
 
 def execute_requests(reqs: List[PlannedRequest],
@@ -192,7 +211,7 @@ def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
                            f"arbitrated {admitted}")
     if cfg.corrector is not None:
         runtime.feed_corrector(cfg.corrector, query.qid, reqs, split.outcomes)
-    with tr.span("residual_compute", qid=query.qid):
+    with tr.span("residual_compute", qid=query.qid, backend="interpreter"):
         result = runtime.run_residual(query, split.merged)
     m = get_metrics()
     m.counter("engine.queries").inc()
@@ -254,7 +273,8 @@ def run_query(query, catalog: Catalog, cfg: EngineConfig,
             query, catalog, corrector=cfg.corrector, cache=cfg.result_cache)
         sim = simulate([SimRequest(r.req_id, r.part.node_id, query.qid,
                                    r.cost) for r in reqs],
-                       cfg.res, cfg.mode, breaker=cfg.breaker)
+                       cfg.res, cfg.mode, measured=_measured_of(cfg),
+                       breaker=cfg.breaker)
         run = _run_decided(query, reqs, sim, cfg, sim.makespan,
                            sim.net_bytes, bitmaps)
         if tr.enabled:
@@ -276,7 +296,7 @@ def run_concurrent(queries, catalog: Catalog, cfg: EngineConfig
                                       cache=cfg.result_cache))
     sim = simulate([SimRequest(r.req_id, r.part.node_id, r.query_id, r.cost)
                     for r in all_reqs], cfg.res, cfg.mode,
-                   breaker=cfg.breaker)
+                   measured=_measured_of(cfg), breaker=cfg.breaker)
     tr = obs_trace.get_tracer()
     out: Dict[str, QueryRun] = {}
     for q in queries:

@@ -46,6 +46,17 @@ returns each partition's result and its §4.2 by-products (``aux``).
   sort by ``(partition, target)`` makes each slice exactly the rows
   ``pid == target`` selects per partition, in the reference's row order.
 
+Filter decisions: the reference's filter stage picks between gathering
+survivors per partition and concatenating whole columns and masking once,
+by the estimated selectivity against a threshold calibrated at import.
+The port has one filter route, the words and then one gather over the
+concatenated columns, which is the reference's ``"concat"`` branch; so it
+has no ``filter_gather_threshold`` and no calibration, and it records
+every batch the reference would record (a filtered batch that gathers
+columns the predicate does not read) as ``"concat"``, with the
+reference's ``est_selectivity``, ``n_parts`` and ``rows``, in
+``obs.trace.filter_decision_channel()``.
+
 Output dtypes follow the reference (int32 keys, f64 sums, int64 counts,
 min/max in the column's type), so the bytes a pushdown ships are the
 reference's.
@@ -75,6 +86,7 @@ from repro_torch.kernels import predicate_bitmap as pbk
 from repro_torch.kernels.program import (Program, SplitProgram,
                                          compile_predicate)
 from repro_torch.kernels.ref import words_from_uint32
+from repro_torch.obs import trace as obs_trace
 from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc import operators as qops
 from repro_torch.queryproc.table import ColumnTable
@@ -83,6 +95,16 @@ from repro_torch.storage.catalog import Partition
 
 EXECUTOR_BATCHED = "batched"      # one fused device pass per (table, plan)
 EXECUTOR_REFERENCE = "reference"  # plan.execute_push_plan per partition
+
+
+def reset_filter_decisions() -> None:
+    obs_trace.filter_decision_channel().clear()
+
+
+def filter_decision_counts() -> Dict[str, int]:
+    counts = obs_trace.filter_decision_channel().counts("branch")
+    return {"gather": counts.get("gather", 0),
+            "concat": counts.get("concat", 0)}
 
 
 def _word_counts(lens: Sequence[int]) -> List[int]:
@@ -188,10 +210,12 @@ class CompiledPushPlan:
 
     def raw_projection(self, data: ColumnTable) -> ColumnTable:
         """The pushback payload: the raw accessed-column projection of one
-        partition (the paper's ``S_in``), a copy as if shipped. Replaying
-        the plan over it equals running it over the partition."""
-        return ColumnTable({c: data.cols[c].clone() for c in self.accessed
-                            if c in data.cols})
+        partition (the paper's ``S_in``), a copy as if shipped, with the
+        partition's column stats. Replaying the plan over it equals
+        running it over the partition."""
+        proj = data.select([c for c in self.accessed if c in data.cols])
+        return ColumnTable({c: v.clone() for c, v in proj.cols.items()},
+                           stats=proj._stats)
 
     def estimate_cost(self, part: Partition) -> RequestCost:
         return estimate_cost(self.plan, part, self.sel_fn, self.having_sel_fn)
@@ -256,6 +280,25 @@ class CompiledPushPlan:
         return t.take(torch.nonzero(
             qops.unpack_bitmap(words, len(t))).flatten())
 
+    def _record_filter(self, tables: Sequence[ColumnTable],
+                       present: List[str], keep: Optional[torch.Tensor]
+                       ) -> None:
+        """The reference's filter decision for this batch, as ``"concat"``:
+        recorded where a filtered batch gathers columns its predicate
+        does not read. An ``apply_bitmap`` batch's selectivity is its
+        words' exact share of kept rows."""
+        plan = self.plan
+        filtered = plan.apply_bitmap or plan.predicate is not None
+        if not filtered or all(c in self.pred_cols for c in present):
+            return
+        rows = sum(len(t) for t in tables)
+        if plan.apply_bitmap:
+            est = float(keep.sum()) / rows if rows else 0.0
+        else:
+            est = float(self.sel_fn(tables[0].stats()))
+        obs_trace.record_filter_decision(plan.table, est, "concat",
+                                         len(tables), rows)
+
     def _run_batch(self, tables: Sequence[ColumnTable],
                    bitmaps: Optional[Sequence[torch.Tensor]]
                    ) -> Tuple[ColumnTable, List[int], List[Dict]]:
@@ -296,6 +339,7 @@ class CompiledPushPlan:
                     prog, {c: concat(c) for c in prog.columns})
             if plan.agg is None or self.minmax or split:
                 keep = qops.unpack_bitmap(words, sum(lens))
+        self._record_filter(tables, present, keep)
 
         part_of = None  # each output row's partition, where not contiguous
         if plan.agg is not None:

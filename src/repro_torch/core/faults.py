@@ -1,7 +1,7 @@
 """Deterministic fault injection and the runtime's recovery contract.
 
-Port of ``repro.core.faults`` without ``run_stream``'s hedging and the
-process tier's real worker faults. The same environment variables, the
+Port of ``repro.core.faults`` without the process tier's real worker
+faults (``WorkerFault``). The same environment variables, the
 same spec grammar and the same draws, so a schedule injects the same
 faults at the same (node, path, table, group, attempt) coordinates as the
 JAX package's:
@@ -72,6 +72,21 @@ class FaultExhausted(RuntimeError):
         self.path = path
         self.table = table
         self.attempts = attempts
+
+
+class HedgeAborted(RuntimeError):
+    """A hedged race's loser saw its abort token between attempts and
+    stopped. Raised inside the loser's future, which ``run_stream`` never
+    reads (only the winner's result is), so it surfaces nowhere: it stops
+    the loser from adding calibration samples, fault draws and demotions
+    after the race is decided."""
+
+    def __init__(self, node: int, path: str, table: str):
+        super().__init__(f"hedge loser aborted on node {node} "
+                         f"({path}, table={table})")
+        self.node = node
+        self.path = path
+        self.table = table
 
 
 # --------------------------------------------------------------- fault plan
@@ -327,6 +342,38 @@ class RetryPolicy:
     def real_scale(self) -> float:
         return self.sleep_scale if self.sleep_scale is not None \
             else sleep_scale()
+
+
+# ------------------------------------------------------------ hedge policy
+@dataclasses.dataclass
+class HedgePolicy:
+    """Straggler hedging for ``run_stream``'s storage futures.
+
+    The hedge delay is calibrated online: ``multiplier`` times the
+    ``percentile``-th percentile of the storage-execute durations seen so
+    far in the same stream (at least ``min_delay_s``; no hedging before
+    ``min_samples`` of them). ``fixed_delay_s`` pins the delay instead, so
+    that hedges fire deterministically."""
+    enabled: bool = True
+    percentile: float = 95.0
+    multiplier: float = 3.0
+    min_samples: int = 6
+    min_delay_s: float = 0.01
+    fixed_delay_s: Optional[float] = None
+
+    def delay_s(self, samples: Sequence[float]) -> Optional[float]:
+        """Seconds to wait on a storage future before hedging it (None:
+        do not hedge)."""
+        if not self.enabled:
+            return None
+        if self.fixed_delay_s is not None:
+            return self.fixed_delay_s
+        if len(samples) < self.min_samples:
+            return None
+        s = sorted(samples)
+        rank = min(len(s) - 1,
+                   max(0, int(round(self.percentile / 100.0 * (len(s) - 1)))))
+        return max(self.min_delay_s, self.multiplier * s[rank])
 
 
 # --------------------------------------------------------- circuit breaker

@@ -1,7 +1,7 @@
 """Decision-faithful runtime: the Arbitrator's decisions route real work.
 
-Port of the in-process path of ``repro.core.runtime`` (``run_stream``
-and the process tier are not ported):
+Port of the in-process path of ``repro.core.runtime`` (the process tier
+is not ported):
 
 - pushdown requests run storage-side through the batched executor and
   ship only their results;
@@ -25,11 +25,20 @@ storage-execute boundary, failures retry under the charged deadline, and
 an exhausted pushdown group is demoted to pushback, which is the pushback
 path itself, on the same kernels. Without a plan and a cache the split
 runs as it did before either existed.
+
+``run_stream`` is the arrival-timed driver of many queries at once:
+per-node worker pools sized by the slot pools, dispatch ordered by the
+Arbitrator's live decisions, pushback transfers as device copies, and
+hedged storage futures under a ``core.faults.HedgePolicy``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 import time
+from concurrent.futures import (FIRST_COMPLETED, Future, ThreadPoolExecutor,
+                                TimeoutError as FutTimeout, wait as fut_wait)
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -40,6 +49,7 @@ from repro_torch.core.cost import CardinalityCorrector
 from repro_torch.core.executor import (EXECUTOR_BATCHED, EXECUTOR_REFERENCE,
                                        CompiledPushPlan, compile_push_plan)
 from repro_torch.core.plan import execute_push_plan, plan_signature
+from repro_torch.core.simulator import SimRequest, simulate
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import get_metrics
 from repro_torch.queryproc.table import ColumnTable
@@ -67,7 +77,7 @@ class RequestOutcome:
     attempts: int = 1    # storage-execute attempts (1: clean first try)
     demoted: bool = False  # decided pushdown, exhausted its retries and
     #                        ran as pushback (``path`` says so)
-    hedged: bool = False   # ``run_stream``'s hedging (not ported)
+    hedged: bool = False   # a hedge duplicate won this group's race
 
 
 @dataclasses.dataclass
@@ -105,11 +115,15 @@ def pushback_bytes(cplan: CompiledPushPlan, data: ColumnTable) -> int:
 
 def _exec_group(cplan: CompiledPushPlan, sub, path: str, executor: str,
                 bitmaps: Optional[Dict[int, torch.Tensor]] = None,
+                shipped: Optional[List[ColumnTable]] = None,
                 cache=None) -> List[Tuple[ColumnTable, Dict]]:
     """Execute one same-(table, plan, path) request group: pushdown over
-    the partitions, pushback over raw projections replayed compute-side.
-    ``cache`` serves and fills the storage-side pushdown path only."""
-    if path == PUSHDOWN:
+    the partitions, pushback over raw projections replayed compute-side
+    (``shipped``: projections the stream driver already copied). ``cache``
+    serves and fills the storage-side pushdown path only."""
+    if shipped is not None:
+        tabs = shipped
+    elif path == PUSHDOWN:
         tabs = [r.part.data for r in sub]
     else:  # ship the raw projection, replay compute-side
         tabs = [cplan.raw_projection(r.part.data) for r in sub]
@@ -118,7 +132,7 @@ def _exec_group(cplan: CompiledPushPlan, sub, path: str, executor: str,
         return [execute_push_plan(cplan.plan, t,
                                   None if bms is None else bms[i])
                 for i, t in enumerate(tabs)]
-    use_cache = cache is not None and path == PUSHDOWN
+    use_cache = cache is not None and path == PUSHDOWN and shipped is None
     parts, aux = cplan.execute_batch_parts(
         tabs, bms, cache=cache if use_cache else None,
         parts=[r.part for r in sub] if use_cache else None)
@@ -128,18 +142,21 @@ def _exec_group(cplan: CompiledPushPlan, sub, path: str, executor: str,
 def _exec_group_traced(cplan: CompiledPushPlan, sub, path: str,
                        executor: str,
                        bitmaps: Optional[Dict[int, torch.Tensor]] = None,
+                       shipped: Optional[List[ColumnTable]] = None,
+                       parent: Optional[obs_trace.Span] = None,
                        node: Optional[int] = None, cache=None
                        ) -> Tuple[List[Tuple[ColumnTable, Dict]],
                                   obs_trace.Span]:
-    """``_exec_group`` under a span, ``storage_execute`` for pushdown and
-    ``compute_replay`` for pushback; the closed span comes back so the
-    caller can attach the ``shipped_bytes`` it accounts anyway."""
+    """``_exec_group`` under a span (child of ``parent`` when given),
+    ``storage_execute`` for pushdown and ``compute_replay`` for pushback;
+    the closed span comes back so the caller can attach the
+    ``shipped_bytes`` it accounts anyway."""
     tr = obs_trace.get_tracer()
     name = "storage_execute" if path == PUSHDOWN else "compute_replay"
-    with tr.span(name, table=sub[0].table, n_parts=len(sub),
+    with tr.span(name, parent=parent, table=sub[0].table, n_parts=len(sub),
                  node=node) as sp:
         out = _exec_group(cplan, sub, path, executor, bitmaps=bitmaps,
-                          cache=cache)
+                          shipped=shipped, cache=cache)
         if tr.enabled:
             sp.set(rows_out=int(sum(len(res) for res, _ in out)),
                    signature=plan_signature(cplan.plan),
@@ -161,7 +178,11 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
                           retry: "_faults.RetryPolicy",
                           breaker: Optional["_faults.CircuitBreaker"] = None,
                           bitmaps: Optional[Dict[int, torch.Tensor]] = None,
-                          cache=None
+                          shipped: Optional[List[ColumnTable]] = None,
+                          parent: Optional[obs_trace.Span] = None,
+                          node: Optional[int] = None, cache=None,
+                          salt: str = "",
+                          abort: Optional[threading.Event] = None
                           ) -> Tuple[List[Tuple[ColumnTable, Dict]],
                                      obs_trace.Span, GroupRecovery]:
     """``_exec_group_traced`` under the fault and recovery contract.
@@ -182,11 +203,17 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
     - otherwise: raise ``core.faults.FaultExhausted``, the fail-to-error
       baseline.
 
+    ``salt`` varies the draws (a hedge duplicate is a new attempt, not a
+    replay). ``abort`` is a hedge loser's token: once set, the loop raises
+    ``core.faults.HedgeAborted`` at its next attempt boundary and before
+    the demote fallback, so a lost race charges no further draws,
+    counters or demotions. Kernels it already launched run to their end.
+
     Every outcome feeds the breaker (when given) and the
     ``faults.node<N>.<path>.failures``/``.successes`` counters."""
     m = get_metrics()
     tr = obs_trace.get_tracer()
-    node_id = sub[0].part.node_id
+    node_id = node if node is not None else sub[0].part.node_id
     table = sub[0].table
     key = f"{min(r.req_id for r in sub)}x{len(sub)}"
     rec = GroupRecovery()
@@ -194,7 +221,9 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
     scale = retry.real_scale()
     attempt = 1
     while True:
-        action = faults.draw(node_id, path, table, key, attempt)
+        if abort is not None and abort.is_set():
+            raise _faults.HedgeAborted(node_id, path, table)
+        action = faults.draw(node_id, path, table, key, attempt, salt)
         if action is None or action.kind == _faults.FAULT_STRAGGLER:
             if action is not None:
                 m.counter(f"faults.{_faults.FAULT_STRAGGLER}").inc()
@@ -202,14 +231,15 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
                 delay = action.param if action.param is not None \
                     else retry.attempt_timeout_s
                 if tr.enabled:
-                    tr.event("fault_injected",
+                    tr.event("fault_injected", parent=parent,
                              kind=_faults.FAULT_STRAGGLER, node=node_id,
                              table=table, path=path, attempt=attempt,
                              delay_s=delay)
                 if delay * scale > 0:
                     time.sleep(delay * scale)
             out, sp = _exec_group_traced(cplan, sub, path, executor,
-                                         bitmaps=bitmaps, node=node_id,
+                                         bitmaps=bitmaps, shipped=shipped,
+                                         parent=parent, node=node_id,
                                          cache=cache)
             rec.attempts = attempt
             m.counter(f"faults.node{node_id}.{path}.successes").inc()
@@ -223,8 +253,8 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
         if breaker is not None:
             breaker.record_failure(node_id, path)
         if tr.enabled:
-            tr.event("fault_injected", kind=kind, node=node_id,
-                     table=table, path=path, attempt=attempt)
+            tr.event("fault_injected", parent=parent, kind=kind,
+                     node=node_id, table=table, path=path, attempt=attempt)
         charge = retry.charge(kind)
         budget -= charge
         if kind == _faults.FAULT_TIMEOUT and charge * scale > 0:
@@ -237,7 +267,7 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
                 rec.retries += 1
                 m.counter("retry.attempts").inc()
                 if tr.enabled:
-                    tr.event("retry", attempt=attempt + 1,
+                    tr.event("retry", parent=parent, attempt=attempt + 1,
                              node=node_id, table=table, backoff_s=back,
                              budget_s=budget)
                 if back * scale > 0:
@@ -249,13 +279,16 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
         if not retry.demote_on_exhaust:
             m.counter("retry.exhausted").inc()
             raise _faults.FaultExhausted(kind, node_id, path, table, attempt)
+        if abort is not None and abort.is_set():
+            raise _faults.HedgeAborted(node_id, path, table)
         rec.demoted = True
         m.counter("retry.demotions" if path == PUSHDOWN
                   else "retry.local_replays").inc()
-        with tr.span("demote", node=node_id, table=table, from_path=path,
-                     attempts=attempt, kind=kind):
+        with tr.span("demote", parent=parent, node=node_id, table=table,
+                     from_path=path, attempts=attempt, kind=kind):
             out, sp = _exec_group_traced(cplan, sub, PUSHBACK, executor,
-                                         bitmaps=bitmaps, node=node_id)
+                                         bitmaps=bitmaps, shipped=shipped,
+                                         parent=parent, node=node_id)
         if breaker is not None and path == PUSHDOWN:
             # the fallback succeeded on the other path
             breaker.record_success(node_id, PUSHBACK)
@@ -417,3 +450,411 @@ def feed_corrector(corrector: CardinalityCorrector, qid: str, reqs,
         est = sum(r.s_out_raw or r.cost.s_out for r in rs)
         real = sum(real_by_id[r.req_id] for r in rs)
         corrector.observe(qid, table, sig, est, real)
+
+
+# ------------------------------------------------- concurrent stream driver
+@dataclasses.dataclass
+class StreamQuery:
+    query: object                 # queries.Query
+    arrival: float = 0.0          # seconds after the stream starts
+
+
+@dataclasses.dataclass
+class StreamRun:
+    mode: str
+    wall_clock: float             # execution makespan, seconds
+    t_decide: float               # planning + arbitration (the fluid
+    #   simulator) seconds, kept out of wall_clock: the simulator stands in
+    #   for the storage node's microsecond-scale arbitration
+    per_query: Dict[str, Dict]    # key -> timings + split counts
+    results: Dict[str, ColumnTable]   # key -> final query result
+    sim: object                   # the shared SimResult
+    n_pushdown: int
+    n_pushback: int
+    real_net_bytes: int
+    n_demoted: int = 0
+    retries: int = 0
+    hedged: int = 0               # hedge races won by the duplicate
+
+
+def _ship(cplan: CompiledPushPlan, parts_data: List[ColumnTable]
+          ) -> List[ColumnTable]:
+    """The pushback transfer: a device copy of each partition's raw
+    accessed-column projection (``CompiledPushPlan.raw_projection``), so
+    the replay reads moved bytes, not the partition in place."""
+    return [cplan.raw_projection(d) for d in parts_data]
+
+
+def _ship_traced(cplan: CompiledPushPlan, parts_data: List[ColumnTable],
+                 parent: Optional[obs_trace.Span] = None,
+                 node: Optional[int] = None) -> List[ColumnTable]:
+    """``_ship`` under a ``pushback_ship`` span; its ``ship_bytes`` is the
+    stored ``s_in`` the transfer moves, which the matching
+    ``compute_replay`` span counts once as ``shipped_bytes``."""
+    tr = obs_trace.get_tracer()
+    with tr.span("pushback_ship", parent=parent,
+                 n_parts=len(parts_data), node=node) as sp:
+        out = _ship(cplan, parts_data)
+        if tr.enabled:
+            sp.set(ship_bytes=int(sum(pushback_bytes(cplan, d)
+                                      for d in parts_data)))
+    return out
+
+
+def run_stream(stream: Sequence[StreamQuery], catalog, cfg,
+               time_scale: float = 1.0) -> StreamRun:
+    """Drive an arrival-timed stream of queries through real split
+    execution on per-node worker pools sized by the slot pools.
+
+    Per storage node: ``res.pd_slots`` pushdown-execution workers and
+    ``res.pb_slots`` transfer workers (a pushback slot is the transfer, as
+    in the simulator), each capped at the node's share of the host's
+    cores; a compute pool replays pushed-back groups, and a finish pool
+    merges each query and runs its residual. All requests of the stream
+    are planned and arbitrated together in one simulation (arrivals
+    ``time_scale`` seconds apart per unit), and each query's groups are
+    dispatched in the order the Arbitrator decided them. A query id that
+    appears several times is keyed ``qid``, ``qid#1``, ... in
+    ``per_query`` and ``results``.
+
+    Under a ``cfg.hedge`` policy, a pushdown group still running after the
+    calibrated delay gets a duplicate on the same node's pool; the first
+    to finish wins and only its results reach the bytes, the counters and
+    the calibration samples. Calibration samples are host-clock seconds
+    of a group until its device work is done: on the GPU the worker
+    synchronizes its stream before reading the clock.
+
+    Every worker launches on the current stream of the catalog's device,
+    which a pool thread leaves at the device's default stream: all
+    workers share one CUDA stream, so the card runs their kernels one
+    after another, in the order the host queued them. Only the in-process
+    storage tier is ported. ``cfg.device`` must hold the catalog.
+    """
+    from repro_torch.core import engine as _engine  # engine imports us
+    _engine._check_catalog(catalog, cfg)
+    tr = obs_trace.get_tracer()
+    with tr.span("run_stream", mode=cfg.mode,
+                 n_queries=len(stream)) as stream_span:
+        return _run_stream_body(stream, catalog, cfg, time_scale, tr,
+                                stream_span, _engine)
+
+
+def _run_stream_body(stream, catalog, cfg, time_scale, tr, stream_span,
+                     _engine) -> StreamRun:
+    metrics = get_metrics()
+    t_plan0 = time.perf_counter()
+    ordered = sorted(stream, key=lambda s: s.arrival)
+    seen: Dict[str, int] = {}
+    keys: List[str] = []
+    for sq in ordered:
+        n = seen.get(sq.query.qid, 0)
+        seen[sq.query.qid] = n + 1
+        keys.append(sq.query.qid if n == 0 else f"{sq.query.qid}#{n}")
+    all_reqs: List = []
+    reqs_by_key: Dict[str, List] = {}
+    cache = cfg.result_cache
+    for key, sq in zip(keys, ordered):
+        reqs = _engine.plan_requests(sq.query, catalog,
+                                     start_id=len(all_reqs),
+                                     corrector=cfg.corrector, cache=cache)
+        for r in reqs:
+            r.query_id = key   # one simulation identity per stream entry
+        reqs_by_key[key] = reqs
+        all_reqs.extend(reqs)
+    arrival_of = dict(zip(keys, (sq.arrival for sq in ordered)))
+    sim_reqs = [SimRequest(r.req_id, r.part.node_id, r.query_id, r.cost,
+                           arrival=arrival_of[r.query_id])
+                for r in all_reqs]
+    decision_pos: Dict[int, int] = {}
+    sim = simulate(sim_reqs, cfg.res, cfg.mode,
+                   on_decision=lambda rid, _path: decision_pos.setdefault(
+                       rid, len(decision_pos)),
+                   measured=_engine._measured_of(cfg), breaker=cfg.breaker)
+    decisions = sim.decisions()
+    t_decide = time.perf_counter() - t_plan0
+
+    nodes = sorted({r.part.node_id for r in all_reqs})
+    # pools sized by the slot pools, capped at each node's share of the
+    # host's cores, and a semaphore capping running tasks at the core
+    # count: the pools carry the paper's queueing (which path waits on
+    # which slot class), the semaphore the host's physics
+    ncpu = os.cpu_count() or 1
+    per_node = max(1, ncpu // max(1, len(nodes)))
+    cores = threading.BoundedSemaphore(ncpu)
+    exec_pools = {n: ThreadPoolExecutor(
+        max(1, min(cfg.res.pd_slots, per_node))) for n in nodes}
+    ship_pools = {n: ThreadPoolExecutor(
+        max(1, min(cfg.res.pb_slots, per_node))) for n in nodes}
+    compute_pool = ThreadPoolExecutor(
+        max(1, min(2 * cfg.num_compute_nodes, ncpu)))
+    finish_pool = ThreadPoolExecutor(max(1, min(len(ordered),
+                                                max(2, ncpu))))
+
+    faults = cfg.faults if cfg.faults is not None else _faults.env_plan()
+    recovered = faults is not None
+    retry = cfg.retry
+    if recovered and retry is None:
+        retry = _faults.RetryPolicy()
+    hedge = cfg.hedge
+    breaker = cfg.breaker
+    exec_samples: List[float] = []     # the winners' group durations, which
+    samples_lock = threading.Lock()    # the hedge delay calibrates on
+    dev = catalog.device
+    if dev.type == "cuda":
+        def device_done():
+            torch.cuda.current_stream(dev).synchronize()
+    else:
+        def device_done():
+            pass
+
+    def on_core(fn, *args, **kw):
+        with cores:
+            return fn(*args, **kw)
+
+    def exec_group(cplan, sub, path, shipped=None, qspan=None, node=None,
+                   salt="", abort=None):
+        """One storage-execute (or replay) group, through the recovery
+        loop under a fault plan: ``(out, span, GroupRecovery or None,
+        seconds until its device work was done)``."""
+        t_ex = time.perf_counter()
+        if not recovered:
+            out, sp = _exec_group_traced(cplan, sub, path, cfg.executor,
+                                         shipped=shipped, parent=qspan,
+                                         node=node, cache=cache)
+            rec = None
+        else:
+            out, sp, rec = _exec_group_recovered(
+                cplan, sub, path, cfg.executor, faults, retry,
+                breaker=breaker, shipped=shipped, parent=qspan, node=node,
+                cache=cache, salt=salt, abort=abort)
+        device_done()
+        return out, sp, rec, time.perf_counter() - t_ex
+
+    def sample_wave(qspan) -> None:
+        """The load at each dispatch wave: the slot pools' queue depths
+        and the free cores, written to the gauges ``MeasuredLoad`` reads
+        and, when tracing, stamped on the query as a ``wave_sample``."""
+        cores_free = getattr(cores, "_value", None)
+        if cores_free is not None:
+            metrics.gauge("stream.cores_free").set(cores_free)
+        exec_q = {n: exec_pools[n]._work_queue.qsize() for n in nodes}
+        ship_q = {n: ship_pools[n]._work_queue.qsize() for n in nodes}
+        for n in nodes:
+            metrics.gauge(f"stream.node{n}.exec_queue").set(exec_q[n])
+            metrics.gauge(f"stream.node{n}.ship_queue").set(ship_q[n])
+        if tr.enabled:
+            tr.event("wave_sample", parent=qspan, exec_queue=exec_q,
+                     ship_queue=ship_q, cores_free=cores_free)
+
+    def submit_query(key: str, qspan) -> List[Tuple[object, Future]]:
+        """Fan the query's requests out as (request group, future) chunks
+        in decision order."""
+        sample_wave(qspan)
+        chunks: Dict[Tuple[str, int, int, str], List] = {}
+        for r in reqs_by_key[key]:
+            path = decisions.get(r.req_id, PUSHDOWN)
+            chunks.setdefault(
+                (r.table, id(r.plan), r.part.node_id, path), []).append(r)
+        futs: List[Tuple[object, Future]] = []
+        for (_table, _pid, node, path), sub in sorted(
+                chunks.items(),
+                key=lambda kv: min(decision_pos.get(r.req_id, 0)
+                                   for r in kv[1])):
+            cplan = compile_push_plan(sub[0].plan)
+            abort = threading.Event() if hedge is not None else None
+            if path == PUSHDOWN:
+                fut = exec_pools[node].submit(
+                    on_core, exec_group, cplan, sub, path,
+                    qspan=qspan, node=node, abort=abort)
+            else:
+                ship_fut = ship_pools[node].submit(
+                    on_core, _ship_traced, cplan,
+                    [r.part.data for r in sub], parent=qspan, node=node)
+                # wait for the transfer outside the core gate, replay in it
+                fut = compute_pool.submit(
+                    lambda cp=cplan, s=sub, sf=ship_fut, qs=qspan, nd=node,
+                    ab=abort:
+                    on_core(exec_group, cp, s, PUSHBACK,
+                            shipped=sf.result(), qspan=qs, node=nd,
+                            abort=ab))
+            futs.append(((sub, path, cplan, node, abort), fut))
+        return futs
+
+    t0 = time.perf_counter()
+
+    def resolve(meta, fut, qspan):
+        """Await one group's future, hedging a pushdown straggler: past
+        the calibrated delay a duplicate (salted, so its fault draws
+        differ) runs on the same node's pool, and the first to finish
+        wins. The loser is cancelled if still queued and its abort token
+        set otherwise, so it stops at its next attempt boundary. Only the
+        winner's results and duration reach the accounting and the
+        calibration samples (``stream.exec_samples`` counts them), however
+        close the race. Returns ``(out, span, rec, hedge_won)``."""
+        sub, path, cplan, node, abort = meta
+        delay = None
+        if hedge is not None and path == PUSHDOWN:
+            with samples_lock:
+                delay = hedge.delay_s(exec_samples)
+        winner, won = fut, False
+        if delay is not None:
+            try:
+                fut.result(timeout=delay)
+            except FutTimeout:
+                metrics.counter("hedge.launched").inc()
+                if tr.enabled:
+                    tr.event("hedge", parent=qspan, node=node,
+                             table=sub[0].table, delay_s=delay)
+                dup_abort = threading.Event()
+                dup = exec_pools[node].submit(
+                    on_core, exec_group, cplan, sub, path, qspan=qspan,
+                    node=node, salt="hedge", abort=dup_abort)
+                done, _ = fut_wait({fut, dup}, return_when=FIRST_COMPLETED)
+                if fut not in done:                # the original preferred
+                    winner, won = dup, True
+                loser, loser_abort = (fut, abort) if won \
+                    else (dup, dup_abort)
+                loser.cancel()
+                loser_abort.set()
+                metrics.counter("hedge.won" if won else "hedge.lost").inc()
+        out, sp, rec, seconds = winner.result()
+        with samples_lock:
+            exec_samples.append(seconds)
+        metrics.counter("stream.exec_samples").inc()
+        return out, sp, rec, won
+
+    def finish_query(key: str, sq: StreamQuery, futs, qspan) -> Dict:
+        try:
+            return _finish_query(key, sq, futs, qspan)
+        except BaseException as e:
+            # close the query span with the failure and re-raise: the
+            # driver surfaces it after draining the other queries
+            if tr.enabled:
+                tr.end(qspan, error=repr(e))
+            raise
+
+    def _finish_query(key: str, sq: StreamQuery, futs, qspan) -> Dict:
+        per_req: Dict[int, ColumnTable] = {}
+        outcomes: List[RequestOutcome] = []
+        n_pd = n_pb = n_hit = n_dem = n_retry = n_hedge = 0
+        pd_b = pb_b = 0
+        for meta, fut in futs:
+            sub, path, cplan, _node, _abort = meta
+            out, gsp, rec, hedged = resolve(meta, fut, qspan)
+            eff_path = PUSHBACK if (rec is not None and rec.demoted) \
+                else path
+            demoted = eff_path != path
+            if rec is not None:
+                n_retry += rec.retries
+            if hedged:
+                n_hedge += 1
+            g_bytes = 0
+            for r, (res, aux) in zip(sub, out):
+                per_req[r.req_id] = res
+                if eff_path == PUSHDOWN:
+                    n_pd += 1
+                    b = result_bytes(res, aux)
+                    pd_b += b
+                else:
+                    n_pb += 1
+                    b = pushback_bytes(cplan, r.part.data)
+                    pb_b += b
+                    if demoted:
+                        n_dem += 1
+                g_bytes += b
+                kind = aux.get("cache")
+                if kind:
+                    n_hit += 1
+                outcomes.append(RequestOutcome(
+                    r.req_id, r.table, eff_path, len(res), b,
+                    replayed=(eff_path == PUSHBACK), cache=kind,
+                    attempts=rec.attempts if rec is not None else 1,
+                    demoted=demoted, hedged=hedged))
+            tr.amend(gsp, shipped_bytes=int(g_bytes))
+        if cfg.corrector is not None:
+            # the correction belongs to the query, not the stream slot
+            feed_corrector(cfg.corrector, sq.query.qid, reqs_by_key[key],
+                           outcomes)
+        by_table: Dict[str, List[ColumnTable]] = {}
+        for r in reqs_by_key[key]:
+            by_table.setdefault(r.table, []).append(per_req[r.req_id])
+
+        def merge_and_compute():
+            with tr.span("merge", parent=qspan, tables=sorted(by_table)):
+                merged = {t: ColumnTable.concat(p)
+                          for t, p in by_table.items()}
+            with tr.span("residual_compute", parent=qspan) as rsp:
+                res = run_residual(sq.query, merged)
+                tr.amend(rsp, backend="interpreter", jit_hits=None,
+                         jit_misses=None)
+                return res
+
+        result = on_core(merge_and_compute)
+        sim_pd = sum(r.cost.s_out for r in reqs_by_key[key]
+                     if decisions.get(r.req_id, PUSHDOWN) == PUSHDOWN)
+        finish_s = time.perf_counter() - t0
+        metrics.counter("stream.requests.pushdown").inc(n_pd)
+        metrics.counter("stream.requests.pushback").inc(n_pb)
+        metrics.counter("stream.net_bytes.real").inc(pd_b + pb_b)
+        if n_hit:
+            metrics.counter("stream.cache_hits").inc(n_hit)
+        if n_dem:
+            metrics.counter("stream.requests.demoted").inc(n_dem)
+        metrics.histogram("stream.query_finish_s").observe(finish_s)
+        if tr.enabled:
+            sim_pb = sum(r.cost.s_in for r in reqs_by_key[key]
+                         if decisions.get(r.req_id, PUSHDOWN) == PUSHBACK)
+            tr.end(qspan, real_net_bytes=int(pd_b + pb_b),
+                   sim_net_bytes=int(sim_pd + sim_pb),
+                   n_pushdown=n_pd, n_pushback=n_pb, cache_hits=n_hit,
+                   n_demoted=n_dem, retries=n_retry, hedged=n_hedge,
+                   s_out_est_ratio=(sim_pd / pd_b if pd_b else None),
+                   finish_s=finish_s)
+        return {"result": result, "finish_s": finish_s,
+                "n_pushdown": n_pd, "n_pushback": n_pb,
+                "cache_hits": n_hit,
+                "n_demoted": n_dem, "retries": n_retry, "hedged": n_hedge,
+                "real_net_bytes": pd_b + pb_b,
+                "s_out_estimate_ratio": (sim_pd / pd_b if pd_b else None),
+                "sim_finish": sim.finish_by_query.get(key)}
+
+    finishers: Dict[str, Future] = {}
+    errors: Dict[str, BaseException] = {}
+    per_query: Dict[str, Dict] = {}
+    try:
+        for key, sq in zip(keys, ordered):
+            delay = t0 + sq.arrival * time_scale - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            # detached span: opened here, closed by the finish-pool worker
+            qspan = tr.start("query", parent=stream_span,
+                             qid=key, mode=cfg.mode, arrival=sq.arrival)
+            finishers[key] = finish_pool.submit(
+                finish_query, key, sq, submit_query(key, qspan), qspan)
+        # drain every finisher before surfacing a failure, so no worker
+        # is left on a half-shut pool
+        for key, f in finishers.items():
+            try:
+                per_query[key] = f.result()
+            except BaseException as e:  # noqa: BLE001 - drained, re-raised
+                errors[key] = e
+        wall = time.perf_counter() - t0
+    finally:
+        # cancel what never started, then join every worker thread
+        for p in (*exec_pools.values(), *ship_pools.values(),
+                  compute_pool, finish_pool):
+            p.shutdown(wait=True, cancel_futures=True)
+    if errors:
+        key, err = next(iter(errors.items()))
+        raise RuntimeError(
+            f"stream query {key!r} failed "
+            f"({len(errors)}/{len(finishers)} queries errored)") from err
+    results = {key: d.pop("result") for key, d in per_query.items()}
+    totals = {f: sum(d[f] for d in per_query.values())
+              for f in ("n_pushdown", "n_pushback", "n_demoted", "retries",
+                        "hedged", "real_net_bytes")}
+    if tr.enabled:
+        stream_span.set(wall_clock=wall, t_decide=t_decide, **totals)
+    return StreamRun(mode=cfg.mode, wall_clock=wall, t_decide=t_decide,
+                     per_query=per_query, results=results, sim=sim,
+                     **totals)

@@ -25,6 +25,7 @@ from repro_torch.core.engine import EngineConfig, PlannedRequest, plan_requests
 from repro_torch.core.executor import compile_push_plan
 from repro_torch.core.plan import PushPlan
 from repro_torch.core.simulator import SimRequest, simulate
+from repro_torch.obs import trace as obs_trace
 from repro_torch.queryproc import operators as ops
 from repro_torch.queryproc.queries import Query
 from repro_torch.queryproc.table import ColumnTable
@@ -52,17 +53,25 @@ class ShuffleRun:
 def _exec_table_bytes(reqs: List[PlannedRequest]
                       ) -> Dict[str, List[Tuple[int, int]]]:
     """Run each request's plan, one fused pass per (table, plan), and
-    record (node, result bytes) per request."""
+    record (node, result bytes) per request, each pass under a
+    ``storage_execute`` span."""
+    tr = obs_trace.get_tracer()
     groups: Dict[Tuple[str, int], List[PlannedRequest]] = {}
     for r in reqs:
         groups.setdefault((r.table, id(r.plan)), []).append(r)
     by_table: Dict[str, List[Tuple[int, int]]] = {}
     for (table, _), rs in groups.items():
-        parts, _aux = compile_push_plan(rs[0].plan).execute_batch_parts(
-            [r.part.data for r in rs])
-        for r, res in zip(rs, parts):
-            b = res.nbytes(stored=False) if len(res) else 0
-            by_table.setdefault(table, []).append((r.part.node_id, b))
+        with tr.span("storage_execute", cat="shuffle", table=table,
+                     n_parts=len(rs)) as sp:
+            parts, _aux = compile_push_plan(rs[0].plan).execute_batch_parts(
+                [r.part.data for r in rs])
+            total = 0
+            for r, res in zip(rs, parts):
+                b = res.nbytes(stored=False) if len(res) else 0
+                total += b
+                by_table.setdefault(table, []).append((r.part.node_id, b))
+            if tr.enabled:
+                sp.set(shipped_bytes=int(total))
     return by_table
 
 

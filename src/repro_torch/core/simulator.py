@@ -1,9 +1,11 @@
 """Deterministic fluid discrete-event simulator of the storage layer.
 
-Port of ``repro.core.simulator`` (without measured load and tracing); its
-decisions equal the reference's exactly, a shared circuit breaker's
-routing included. ``decisions`` fixes every
-request's path up front: the §3.1 oracle that ``core.optimum`` evaluates.
+Port of ``repro.core.simulator``; its decisions equal the reference's
+exactly, a shared circuit breaker's routing and measured load included.
+``decisions`` fixes every request's path up front: the §3.1 oracle that
+``core.optimum`` evaluates. ``on_decision`` hears every assignment as it
+is made (``run_stream`` orders real work by it), and the whole run is
+one ``arbitrate`` span.
 Every task is a sequence of (resource, bytes) stages; resources serve the
 active tasks at deterministic rates; events fire when the earliest stage
 drains. Per storage node:
@@ -20,10 +22,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN, Arbitrator
 from repro_torch.core.cost import RequestCost, StorageResources
+from repro_torch.obs import trace as obs_trace
 
 EPS = 1e-12
 
@@ -97,8 +100,10 @@ class _ForcedArbitrator:
     §3.1); one FIFO queue per path, so a full path never blocks the
     other."""
 
-    def __init__(self, res: StorageResources, decisions: Dict[int, str]):
+    def __init__(self, res: StorageResources, decisions: Dict[int, str],
+                 on_decide: Optional[Callable[[int, str], None]] = None):
         self.decisions = decisions
+        self.on_decide = on_decide
         self.q: Dict[str, List[int]] = {PUSHDOWN: [], PUSHBACK: []}
         self.free = {PUSHDOWN: res.pd_slots, PUSHBACK: res.pb_slots}
 
@@ -116,27 +121,63 @@ class _ForcedArbitrator:
             while self.q[path] and self.free[path] > 0:
                 self.free[path] -= 1
                 out.append((self.q[path].pop(0), path))
+        if out:
+            tr = obs_trace.get_tracer()
+            if tr.enabled:
+                tr.decisions.record_batch(
+                    out, kind="arbitrate",
+                    queue_depth=len(self.q[PUSHDOWN]) + len(self.q[PUSHBACK]),
+                    free_pd=self.free[PUSHDOWN], free_pb=self.free[PUSHBACK],
+                    pa_aware=False, forced="oracle")
+        if self.on_decide is not None:
+            for rid, path in out:
+                self.on_decide(rid, path)
         return out
 
 
 def simulate(requests: List[SimRequest], res: StorageResources,
              mode: str = MODE_ADAPTIVE,
              decisions: Optional[Dict[int, str]] = None,
-             breaker=None) -> SimResult:
+             on_decision: Optional[Callable[[int, str], None]] = None,
+             measured=None, breaker=None) -> SimResult:
     """Run the requests through every node's Arbitrator in ``mode``, or
     down the paths ``decisions`` fixes (req_id -> path) when given.
+    ``on_decision(req_id, path)`` hears every assignment as it is made.
+    ``measured`` (an ``arbitrator.MeasuredLoad``) makes every node's
+    backlog guard read the measured ``stream.*`` queue depths;
     ``breaker`` (a ``core.faults.CircuitBreaker``) is shared by every
     node's Arbitrator."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    tr = obs_trace.get_tracer()
+    with tr.span("arbitrate", mode=mode, n_requests=len(requests)) as sp:
+        result = _simulate(requests, res, mode, decisions, on_decision,
+                           measured, breaker)
+        if tr.enabled:
+            # per_request is attached by reference (complete once
+            # _simulate returns); the exporters coerce it
+            sp.set(makespan=result.makespan,
+                   sim_net_bytes=float(result.net_bytes),
+                   n_pushdown=result.admitted(),
+                   n_pushback=sum(result.pushed_back_by_query.values()),
+                   decisions=result.per_request)
+    return result
+
+
+def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
+              decisions: Optional[Dict[int, str]],
+              on_decision: Optional[Callable[[int, str], None]],
+              measured, breaker) -> SimResult:
     nodes = sorted({r.node_id for r in requests})
     forced = {MODE_NO_PUSHDOWN: PUSHBACK, MODE_EAGER: PUSHDOWN}.get(mode)
     if decisions is not None:
-        arbs = {n: _ForcedArbitrator(res, decisions) for n in nodes}
+        arbs = {n: _ForcedArbitrator(res, decisions, on_decide=on_decision)
+                for n in nodes}
     else:
         arbs = {n: Arbitrator(res, pa_aware=(mode == MODE_ADAPTIVE_PA),
-                              forced_path=forced, node_id=n,
-                              breaker=breaker) for n in nodes}
+                              forced_path=forced, on_decide=on_decision,
+                              measured=measured, node_id=n, breaker=breaker)
+                for n in nodes}
     by_id = {r.req_id: r for r in requests}
     pending = sorted(requests, key=lambda r: (r.arrival, r.req_id))
     active: List[TaskState] = []

@@ -1,20 +1,31 @@
-"""Per-query spans on the host: off by default, free when off.
+"""Per-query spans and decision channels on the host: off by default,
+free when off.
 
-Port of the span core of ``repro.obs.trace``: ``Span``, the null span and
-context manager, ``Tracer`` (without the detached ``start``/``end`` pair,
-the decision channels and the streaming sink), ``NULL_TRACER`` and
-``get_tracer``/``set_tracer``/``tracing``. Every hook of the engine routes
-through the module-level tracer, and the default ``NULL_TRACER`` makes
-each ``span(...)``/``event(...)``/``amend(...)`` a constant-time no-op: a
-shared context manager that yields a shared, falsy null span whose
-``set()`` swallows everything. Code that computes attributes for a span
-tests ``tracer.enabled`` first, so a run with tracing off does no extra
-work.
+Port of ``repro.obs.trace``. Every hook of the engine routes through the
+module-level tracer, and the default ``NULL_TRACER`` makes each
+``span(...)``/``event(...)``/``start(...)``/``amend(...)`` a
+constant-time no-op: a shared context manager that yields a shared, falsy
+null span whose ``set()`` swallows everything. Code that computes
+attributes for a span tests ``tracer.enabled`` first, so a run with
+tracing off does no extra work.
 
 Span parenting: within one thread ``tracer.span(...)`` context managers
-nest through a thread-local stack; ``parent=`` overrides it. Span times
-are host-clock seconds: a span around device work ends when the host
-returns, not when the card is done.
+nest through a thread-local stack; across threads (``run_stream``'s
+worker pools) the submitting code passes ``parent=`` and opens detached
+spans with ``start``/``end``. A sink (``attach_sink``, e.g.
+``obs.export.JsonlStreamWriter``) hears every span open and close. Span
+times are host-clock seconds: a span around device work ends when the
+host returns, not when the card is done.
+
+``DecisionChannel`` is a bounded, thread-safe event log. Each ``Tracer``
+owns one (``decisions``) that the Arbitrator feeds with the queue depth
+and free slots at each batch of path assignments. One module-level
+channel records the batch executor's filter decisions whether or not
+tracing is on (``record_filter_decision``), and counts them in the
+``executor.filter.<branch>`` counters.
+
+Span attributes hold host values: a tensor attribute of more than one
+element would make an exporter copy it off the device.
 """
 from __future__ import annotations
 
@@ -24,8 +35,13 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
-__all__ = ["Span", "Tracer", "NULL_TRACER", "get_tracer", "set_tracer",
-           "tracing"]
+from repro_torch.obs.metrics import get_metrics
+
+__all__ = [
+    "Span", "Tracer", "DecisionChannel", "NULL_TRACER",
+    "get_tracer", "set_tracer", "tracing",
+    "record_filter_decision", "filter_decision_channel",
+]
 
 
 class Span:
@@ -95,6 +111,84 @@ class _NullCM:
 _NULL_CM = _NullCM()
 
 
+class DecisionChannel:
+    """Bounded, thread-safe decision log (append-only up to ``cap``).
+
+    Appends beyond the cap are counted (``dropped``) instead of growing
+    memory. The hot path (``record``)
+    leans on CPython's atomic ``list.append`` — no lock per decision, which
+    matters at arbitration rates (hundreds of records per traced query);
+    under a concurrent race at the exact cap boundary the channel may admit
+    a few extra items (bounded by the number of racing threads), which is
+    an acceptable trade for a memory *bound*. Readers and the dropped
+    counter still serialize on the lock."""
+
+    def __init__(self, cap: int = 8192):
+        self.cap = cap
+        self._items: List[Dict] = []
+        self._dropped = 0
+        self._lock = threading.Lock()
+
+    def record(self, **fields) -> None:
+        items = self._items
+        if len(items) < self.cap:
+            items.append(fields)        # atomic under the GIL
+        else:
+            with self._lock:
+                self._dropped += 1
+
+    def record_batch(self, assigned, **shared) -> None:
+        """One compact entry for a batch of ``(req_id, path)`` decisions
+        sharing the same load state (the Arbitrator drains whole batches
+        under one queue/slot snapshot). The hot path appends a single
+        tuple; readers expand to per-decision dicts lazily."""
+        if not assigned:
+            return
+        items = self._items
+        if len(items) < self.cap:
+            items.append((tuple(assigned), shared))
+        else:
+            with self._lock:
+                self._dropped += len(assigned)
+
+    @staticmethod
+    def _expand(entry) -> List[Dict]:
+        if isinstance(entry, dict):
+            return [dict(entry)]
+        assigned, shared = entry
+        return [dict(shared, req_id=rid, path=path)
+                for rid, path in assigned]
+
+    def snapshot(self) -> List[Dict]:
+        """Copy of the recorded decisions (read-only view for callers)."""
+        with self._lock:
+            return [d for e in self._items for d in self._expand(e)]
+
+    def counts(self, field: str) -> Dict:
+        out: Dict = {}
+        with self._lock:
+            for e in self._items:
+                for d in self._expand(e):
+                    v = d.get(field)
+                    out[v] = out.get(v, 0) + 1
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._items.clear()
+            self._dropped = 0
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def __len__(self) -> int:
+        with self._lock:
+            return sum(1 if isinstance(e, dict) else len(e[0])
+                       for e in self._items)
+
+
 class _SpanCM:
     """Hand-rolled span context manager (a generator-based
     ``@contextmanager`` costs several microseconds a use)."""
@@ -130,32 +224,51 @@ class _SpanCM:
                 stack.pop()
             elif sp in stack:          # mis-nested exit: drop just ours
                 stack.remove(sp)
+            sink = self._tr.sink
+            if sink is not None:
+                sink.on_end(sp)
         return False
 
 
 class Tracer:
-    """Collects a span forest for one or several traced runs.
+    """Collects a span forest for one (or several) traced runs.
 
     - ``span(name, ...)``: context manager; parents to the current
       thread's innermost open ``span(...)`` unless ``parent=`` is given.
-    - ``event(name, ...)``: a zero-duration span.
-    - ``amend(span, ...)``: attributes computed after a span closed.
+    - ``start(name, ...)`` / ``end(span, ...)``: explicit pair for spans
+      whose lifetime crosses threads (started by the submitter, ended by
+      the finisher). Detached: never pushed on any thread-local stack.
+    - ``event(name, ...)``: zero-duration span (instant).
 
-    Span creation takes no lock: ids come from an atomic counter and
-    ``list.append`` is atomic under the GIL. ``max_spans`` makes a runaway
-    loop drop spans (``dropped``) rather than fill the heap.
+    Span creation is lock-free: ids come from an atomic counter and
+    ``list.append`` is atomic under the GIL, so the hot path pays no lock
+    (a concurrent race at the exact ``max_spans`` boundary may admit a few
+    extra spans — acceptable for a memory *bound*). ``max_spans`` keeps a
+    runaway loop dropping spans rather than filling the heap.
     """
 
     enabled = True
+    # optional streaming sink (e.g. ``obs.export.JsonlStreamWriter``):
+    # ``on_start(span)`` fires the moment a span opens, ``on_end(span)``
+    # when it closes — the crash-safe export path. Class-level None keeps
+    # the sink-less hot path to a single attribute test per span.
+    sink = None
 
     def __init__(self, max_spans: int = 1_000_000):
         self.t0 = time.perf_counter()
         self.max_spans = max_spans
         self.spans: List[Span] = []
         self.dropped = 0
+        self.decisions = DecisionChannel()   # arbitration decision channel
         self._local = threading.local()
         self._sid = itertools.count()
 
+    def attach_sink(self, sink) -> "Tracer":
+        """Stream every span start/end to ``sink`` (None detaches)."""
+        self.sink = sink
+        return self
+
+    # ------------------------------------------------------------ internals
     def _stack(self) -> List[Span]:
         st = getattr(self._local, "stack", None)
         if st is None:
@@ -171,18 +284,48 @@ class Tracer:
             stack = self._stack()
             if stack:
                 pid = stack[-1].sid
-        if len(self.spans) >= self.max_spans:
+        spans = self.spans
+        if len(spans) >= self.max_spans:
             self.dropped += 1       # soft counter: benign race
             return None
-        sp = Span(next(self._sid), pid, name, cat,
-                  time.perf_counter() - self.t0, threading.get_ident(), attrs)
-        self.spans.append(sp)       # atomic under the GIL
+        # slots assigned inline — skipping the __init__ frame is worth
+        # a few hundred ns at engine span rates
+        sp = Span.__new__(Span)
+        sp.sid = next(self._sid)
+        sp.parent = pid
+        sp.name = name
+        sp.cat = cat
+        sp.dur = None
+        sp.tid = threading.get_ident()
+        sp.attrs = attrs
+        sp.t0 = time.perf_counter() - self.t0
+        spans.append(sp)            # atomic under the GIL
+        sink = self.sink
+        if sink is not None:
+            sink.on_start(sp)
         return sp
 
+    # ------------------------------------------------------------ public
     def span(self, name: str, cat: str = "engine",
              parent: Optional[Span] = None, **attrs) -> "_SpanCM":
         """Context manager for a same-thread span."""
         return _SpanCM(self, name, cat, parent, attrs)
+
+    def start(self, name: str, cat: str = "engine",
+              parent: Optional[Span] = None, **attrs) -> Span:
+        """Open a detached span (close it with :meth:`end`, any thread)."""
+        sp = self._new(name, cat, parent, attrs)
+        return sp if sp is not None else NULL_SPAN
+
+    def end(self, span: Span, **attrs) -> None:
+        if span is NULL_SPAN or not isinstance(span, Span):
+            return
+        if attrs:
+            span.attrs.update(attrs)
+        span.dur = time.perf_counter() - self.t0 - span.t0
+        sink = self.sink
+        if sink is not None:
+            sink.on_end(span)
 
     def event(self, name: str, cat: str = "engine",
               parent: Optional[Span] = None, **attrs) -> Span:
@@ -190,19 +333,47 @@ class Tracer:
         if sp is None:
             return NULL_SPAN
         sp.dur = 0.0
+        sink = self.sink
+        if sink is not None:
+            sink.on_end(sp)
         return sp
 
     def amend(self, span: Span, **attrs) -> None:
-        """Attach attributes to a span that already closed (accounting
-        computed after the fact, e.g. ``shipped_bytes``)."""
-        if isinstance(span, Span):
-            span.attrs.update(attrs)
+        """Attach attrs to an already-closed span (accounting computed
+        after the fact, e.g. ``shipped_bytes``), re-notifying a streaming
+        sink so the crash-safe export carries them too — ``from_jsonl``
+        merges the re-emitted end record over the first one."""
+        if span is NULL_SPAN or not isinstance(span, Span):
+            return
+        span.attrs.update(attrs)
+        sink = self.sink
+        if sink is not None and span.dur is not None:
+            sink.on_end(span)
 
+    def current(self) -> Optional[Span]:
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    # -------------------------------------------------------------- reads
     def snapshot(self) -> List[Span]:
-        return list(self.spans)     # a list copy is atomic under the GIL
+        return list(self.spans)     # list copy is atomic under the GIL
 
     def find(self, name: str) -> List[Span]:
         return [s for s in self.snapshot() if s.name == name]
+
+    def tree(self) -> List[Dict]:
+        """The span forest as nested dicts (roots in creation order)."""
+        spans = self.snapshot()
+        nodes = {s.sid: {"name": s.name, "cat": s.cat, "t0": s.t0,
+                         "dur": s.dur, "attrs": dict(s.attrs), "children": []}
+                 for s in spans}
+        roots: List[Dict] = []
+        for s in spans:
+            if s.parent is not None and s.parent in nodes:
+                nodes[s.parent]["children"].append(nodes[s.sid])
+            else:
+                roots.append(nodes[s.sid])
+        return roots
 
 
 class _NullTracer(Tracer):
@@ -210,20 +381,36 @@ class _NullTracer(Tracer):
 
     enabled = False
 
-    def __init__(self):
+    def __init__(self):  # no state beyond a drop-everything channel
         self.t0 = 0.0
         self.max_spans = 0
         self.spans = []
         self.dropped = 0
+        self.decisions = DecisionChannel(cap=0)
 
     def span(self, name, cat="engine", parent=None, **attrs):
         return _NULL_CM
+
+    def start(self, name, cat="engine", parent=None, **attrs):
+        return NULL_SPAN
+
+    def end(self, span, **attrs):
+        return None
 
     def amend(self, span, **attrs):
         return None
 
     def event(self, name, cat="engine", parent=None, **attrs):
         return NULL_SPAN
+
+    def current(self):
+        return None
+
+    def snapshot(self):
+        return []
+
+    def tree(self):
+        return []
 
 
 NULL_TRACER = _NullTracer()
@@ -237,7 +424,7 @@ def get_tracer() -> Tracer:
 
 
 def set_tracer(tracer: Optional[Tracer]) -> Tracer:
-    """Install ``tracer`` (None disables tracing); returns the previous one."""
+    """Install ``tracer`` (None -> disable); returns the previous one."""
     global _tracer
     prev = _tracer
     _tracer = tracer if tracer is not None else NULL_TRACER
@@ -253,3 +440,21 @@ def tracing(tracer: Optional[Tracer] = None) -> Iterator[Tracer]:
         yield tr
     finally:
         set_tracer(prev)
+
+
+# ----------------------------------------------- filter-decision channel
+# The batch executor's filter-stage decisions, recorded whether or not
+# tracing is on (bounded and cheap).
+_FILTER_CHANNEL = DecisionChannel(cap=8192)
+
+
+def filter_decision_channel() -> DecisionChannel:
+    return _FILTER_CHANNEL
+
+
+def record_filter_decision(table: str, est_selectivity: Optional[float],
+                           branch: str, n_parts: int, rows: int) -> None:
+    """One batch filter-stage decision (called by ``executor._run_batch``)."""
+    _FILTER_CHANNEL.record(table=table, est_selectivity=est_selectivity,
+                           branch=branch, n_parts=n_parts, rows=rows)
+    get_metrics().counter(f"executor.filter.{branch}").inc()

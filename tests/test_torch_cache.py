@@ -4,7 +4,7 @@ Both sides run the compiled queries (``build_query``) on the sf=0.5,
 2-node, 2,000-row catalog of ``tests/test_cache.py``: the reference's from
 ``repro.queryproc.tpch.build_catalog``, the port's from the same arrays
 through ``catalog_from_arrays``. The reference runs with
-``measured_feedback=False`` (the port has no measured load). For every
+``measured_feedback=False``. For every
 query, cold, warm, containment-served and post-append cached runs must
 give the port's own uncached result bitwise (dtypes included) and the
 reference's result under ``results_equal``; the cache's hits, its

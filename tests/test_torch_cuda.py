@@ -810,3 +810,162 @@ def test_reference_executor_refuses_card_tensors(cuda, catalogs):
         runtime.execute_split(reqs, {}, executor="reference")
     with pytest.raises(ValueError, match="CPU oracle"):
         execute_push_plan(reqs[0].plan, reqs[0].part.data)
+
+
+# ------------------------------------------------------------ stream driver
+SLEEP_CYCLES = 20_000_000     # ~10 ms of device time at the H100's clocks
+
+
+@pytest.fixture
+def fresh_metrics():
+    """A fresh metrics registry, so each stream reads its fluid queues."""
+    from repro_torch.obs import metrics
+    prev = metrics.set_metrics(metrics.Metrics())
+    yield metrics.get_metrics()
+    metrics.set_metrics(prev)
+
+
+def _stream(qids, gap=0.002):
+    from repro_torch.core.runtime import StreamQuery
+    return [StreamQuery(queries.build_query(q), arrival=i * gap)
+            for i, q in enumerate(qids)]
+
+
+def _multi_element_tensors(obj, path="attrs"):
+    if isinstance(obj, torch.Tensor):
+        return [path] if obj.numel() > 1 else []
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items()
+                for p in _multi_element_tensors(v, f"{path}.{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [p for i, v in enumerate(obj)
+                for p in _multi_element_tensors(v, f"{path}[{i}]")]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [p for f in dataclasses.fields(obj)
+                for p in _multi_element_tensors(getattr(obj, f.name),
+                                                f"{path}.{f.name}")]
+    return []
+
+
+def test_stream_on_the_card_matches_the_cpu(cuda, catalogs, fresh_metrics):
+    """All 15 queries and Q6 again through ``run_stream`` on the card
+    catalog: the CPU port's results, decisions and bytes, with kernels
+    launched."""
+    from repro_torch.core.runtime import run_stream
+    from repro_torch.obs import metrics
+    gpu, cpu = catalogs
+    qids = [*queries.QUERY_IDS, "Q6"]
+    for mode, power in (("no_pushdown", 1.0), ("adaptive", 0.1)):
+        res = StorageResources(storage_power=power)
+        metrics.set_metrics(metrics.Metrics())
+        kernels.reset_launches()
+        g = run_stream(_stream(qids), gpu,
+                       EngineConfig(res=res, mode=mode, device=cuda))
+        launched = sum(kernels.launches().values())
+        metrics.set_metrics(metrics.Metrics())
+        c = run_stream(_stream(qids), cpu,
+                       EngineConfig(res=res, mode=mode, device="cpu"))
+        assert launched > 0
+        assert set(g.results) == set(c.results) == {*queries.QUERY_IDS,
+                                                    "Q6#1"}
+        for key in g.results:
+            assert g.results[key].device.type == "cuda"
+            assert results_equal(g.results[key], c.results[key]), key
+        assert g.sim.decisions() == c.sim.decisions()
+        assert (g.n_pushdown, g.n_pushback, g.real_net_bytes) == \
+            (c.n_pushdown, c.n_pushback, c.real_net_bytes)
+
+
+def test_hedged_chaos_stream_on_the_card(cuda, catalogs, fresh_metrics):
+    """Faults with real sleeps and a 1 ms hedge delay: hedges fire, every
+    race is counted once, and the results and split hold."""
+    from repro_torch.core.faults import FaultPlan, HedgePolicy, RetryPolicy
+    from repro_torch.core.runtime import run_stream
+    from repro_torch.obs import metrics
+    gpu, _ = catalogs
+    qids = ["Q1", "Q3", "Q6", "Q12", "Q14"]
+    clean = run_stream(_stream(qids), gpu,
+                       EngineConfig(mode="adaptive", device=cuda),
+                       time_scale=0)
+    m = metrics.Metrics()
+    metrics.set_metrics(m)
+    run = run_stream(_stream(qids), gpu, EngineConfig(
+        mode="adaptive", device=cuda,
+        faults=FaultPlan.from_spec("crash:0.2,transient:0.2,"
+                                   "straggler:0.5:0.005", seed=8),
+        retry=RetryPolicy(sleep_scale=1.0),
+        hedge=HedgePolicy(fixed_delay_s=0.001)), time_scale=0)
+    c = m.snapshot()["counters"]
+    assert c.get("hedge.launched", 0) > 0
+    assert c.get("hedge.won", 0) + c.get("hedge.lost", 0) == \
+        c["hedge.launched"]
+    assert run.hedged == c.get("hedge.won", 0)
+    assert run.n_pushdown + run.n_demoted == run.sim.admitted()
+    for key in qids:
+        assert results_equal(clean.results[key], run.results[key]), key
+
+
+def test_hedge_samples_are_not_shorter_than_the_groups_device_time(
+        cuda, catalogs, fresh_metrics, monkeypatch):
+    """Each group also queues ~10 ms of device sleep, so its device time
+    dwarfs its host time: a calibration sample read before the device was
+    done would come out shorter than the group's CUDA-event time."""
+    from repro_torch.core import runtime
+    from repro_torch.core.faults import HedgePolicy
+    gpu, _ = catalogs
+    real = runtime._exec_group
+    events = []
+
+    def slow(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        out = real(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    class Spy(HedgePolicy):
+        """Hedges nothing; keeps the stream's sample list."""
+        samples = None
+
+        def delay_s(self, samples):
+            self.samples = samples
+            return None
+
+    monkeypatch.setattr(runtime, "_exec_group", slow)
+    spy = Spy()
+    runtime.run_stream(_stream(["Q1", "Q6", "Q14"]), gpu,
+                       EngineConfig(mode="eager", device=cuda, hedge=spy),
+                       time_scale=0)
+    torch.cuda.synchronize()
+    device_s = sorted(s.elapsed_time(e) / 1e3 for s, e in events)
+    samples = sorted(spy.samples)
+    assert len(samples) == len(device_s) > 0
+    assert min(device_s) > 0.001
+    assert all(h >= d for h, d in zip(samples, device_s)), (samples,
+                                                           device_s)
+
+
+def test_traced_card_run_holds_no_multi_element_tensor_in_its_spans(
+        cuda, catalogs, fresh_metrics, tmp_path):
+    """Spans of a traced stream and a costed query on the card hold host
+    values only, and the trace exports."""
+    from repro_torch import compiler
+    from repro_torch.core.runtime import run_stream
+    from repro_torch.obs import export, trace
+    gpu, _ = catalogs
+    with trace.tracing() as tr:
+        run_stream(_stream([*queries.QUERY_IDS, "Q6"]), gpu, EngineConfig(
+            res=StorageResources(storage_power=0.1), mode="adaptive",
+            device=cuda))
+        cq = compiler.compile_query_costed("q19", gpu)
+        run_query(cq.query, gpu, EngineConfig(mode="adaptive", device=cuda))
+    assert tr.find("storage_execute") and tr.find("compute_replay")
+    bad = [(s.name, p) for s in tr.snapshot()
+           for p in _multi_element_tensors(s.attrs)]
+    assert not bad, bad
+    export.to_chrome_trace(tr, tmp_path / "t.json")
+    _, spans = export.from_jsonl(export.to_jsonl(tr, tmp_path / "t.jsonl"))
+    assert len(spans) == len(tr.snapshot())

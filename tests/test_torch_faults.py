@@ -494,9 +494,8 @@ def _span_record(tr):
 
 
 def test_spans_reconcile_with_the_run_and_the_reference(cats):
-    """Traced chaos runs: the port's spans are the reference's, less its
-    ``arbitrate`` span (the port's simulator is not traced); the fault
-    events are the ledger's; the groups' ``shipped_bytes`` add up to the
+    """Traced chaos runs: the port's spans are the reference's, in order;
+    the fault events are the ledger's; the groups' ``shipped_bytes`` add up to the
     real bytes. With tracing off, nothing is recorded."""
     from repro.obs import trace as rtrace
     from repro_torch.obs import trace
@@ -508,7 +507,7 @@ def test_spans_reconcile_with_the_run_and_the_reference(cats):
     check_same_recovery(got, want, plan, rplan)
     names, events = _span_record(tr)
     rnames, revents = _span_record(rtr)
-    assert names == [n for n in rnames if n != "arbitrate"]
+    assert names == rnames
     assert events == revents == [(e.kind, e.node, e.table, e.path,
                                   e.attempt) for e in plan.events()]
     assert sum(s.attrs["shipped_bytes"] for s in tr.snapshot()

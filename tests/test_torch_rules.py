@@ -40,7 +40,8 @@ def test_the_rules_cover_the_cost_based_modules():
             "core/optimum.py", "core/cost.py", "core/engine.py",
             "core/runtime.py", "core/simulator.py", "obs/metrics.py",
             "obs/trace.py", "core/result_cache.py",
-            "core/faults.py"} <= names
+            "core/faults.py", "obs/export.py", "core/arbitrator.py",
+            "core/executor.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -73,6 +74,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_without_a_gpu_the_entry_points_raise(monkeypatch):
     from repro_torch.core.engine import EngineConfig, run_query
+    from repro_torch.core.runtime import StreamQuery, run_stream
     from repro_torch.device import resolve_device
     from repro_torch.queryproc import queries, tpch
     from repro_torch.storage.catalog import Catalog
@@ -87,6 +89,9 @@ def test_without_a_gpu_the_entry_points_raise(monkeypatch):
         tpch.build_catalog(sf=0.1)
     with pytest.raises(RuntimeError):
         run_query(queries.build_query("Q6"), cat, EngineConfig())
+    with pytest.raises(RuntimeError):
+        run_stream([StreamQuery(queries.build_query("Q6"))], cat,
+                   EngineConfig())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -153,7 +158,9 @@ def test_chip_smoke_phases_run_on_the_cpu():
     HAVING on a second catalog clustered by l_orderkey, the §4.2 phase
     cuts every partition's words out of unaligned batch words, the cache
     phase runs every query cold, warm and by containment, and the fault
-    phase every query under the chaos plan."""
+    phase every query under the chaos plan, the stream phase all 15 (and
+    Q6 again) through ``run_stream`` in the four configs and under chaos
+    with hedging, and the trace phase a traced stream exported."""
     import importlib.util
     import time
     from repro_torch.queryproc import tpch
@@ -194,6 +201,8 @@ def test_chip_smoke_phases_run_on_the_cpu():
     assert smoke.section42_phase(cat, lambda: None) == zero
     assert smoke.cache_phase(cat, lambda: None) == zero
     assert smoke.fault_phase(cat, lambda: None) == zero
+    assert smoke.stream_phase(cat, lambda: None) == zero
+    assert smoke.trace_phase(cat, lambda: None, repeats=1) == zero
 
 
 def test_chip_smoke_fails_without_a_gpu():
