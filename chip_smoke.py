@@ -100,8 +100,27 @@ GPU is present. Phases:
    and idle share (``1 - busy / wall``) over the same window; then the
    stream untraced and traced five times each, ``gc.collect()`` before
    every run, and their medians.
-11. Prints each kernel's launches in phases 3 to 10 (all must be above 0),
-   the per-kernel JSON line and, last, the ``{"ok": true, ...}`` line.
+11. Process tier: one spawned storage-worker process per node (4), each
+   holding its node's partitions on the card (shipped over the wire
+   codec) and running the kernels on them; spawn and ship times, and the
+   device memory in use across the card (``mem_get_info``) before
+   spawning, after shipping and after the pools close. Every query
+   through ``compile_and_run`` with ``worker_pool`` in eager 1.0,
+   adaptive 1.0 and adaptive 0.1, each held to its in-process run (the
+   result under the same control, split and real bytes equal; walls and
+   ``wire.*`` bytes printed); every query's seed-7 random decision vector
+   and the shuffle plans of Q3 and Q18 through ``execute_split(tier=)``;
+   the stream phase's stream on the tier (measured load from worker
+   polls) beside the in-process stream; on a fresh pool the same stream
+   with node 0 killed mid-stream (recovered; ``faults.*`` equal to
+   ``pool.events``); one traced split whose worker spans carry the
+   workers' pids; Q6 failing to error without demotion once the first
+   pool's node 0 dies. A hang past ``TIER_DEADLINE_S`` ends the script.
+12. Prints each kernel's launches in phases 3 to 11 (all must be above 0,
+   and on the tier ``predicate_bitmap``, ``fused_scan_agg`` and the two
+   shuffle kernels inside the workers, ``grouped_agg`` in the parent's
+   residuals), the per-kernel JSON line and, last, the ``{"ok": true,
+   ...}`` line.
 """
 from __future__ import annotations
 
@@ -148,6 +167,12 @@ CONTROL_RUNS = 16             # uncached runs that may show a query's f64
 #                               sums moving before "rows" is accepted
 POOLED_VALUES = 512           # multitable.DOMAIN_MAX_VALUES, the longest
 #                               In list the cost-based lowering makes
+TIER_CONFIGS = (("eager", 1.0), ("adaptive", 1.0), ("adaptive", 0.1))
+TIER_SLOTS = 2                # threads a storage worker runs groups on: the
+#                               stream's pools give a node 2 on 8 cores
+TIER_DEADLINE_S = 300.0       # the tier phase's own deadline: a hang past it
+#                               dumps every thread's stack and exits 1
+WIRE_COUNTERS = ("wire.pushdown_result_bytes", "wire.pushback_ship_bytes")
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "fused_scan_agg": "src/repro/kernels/fused_scan_agg.py:56",
             "grouped_agg": "src/repro/kernels/grouped_agg.py:48",
@@ -335,12 +360,22 @@ def kernel_phase(cat, timer):
     check(torch.allclose(sums, psums, rtol=SUM_RTOL, atol=0.0),
           f"fused_scan_agg Q18: sums differ beyond rtol {SUM_RTOL}")
     b_ms, b_by = bound(nbytes(ids, *vals) + G * 16, 2 * R)
+    # with no predicate the function is two bincounts: the sums and counts
+    lib = (torch.bincount(ids, weights=vals[0], minlength=G),
+           torch.bincount(ids, minlength=G))
+    check(torch.equal(lib[1], counts)
+          and torch.allclose(lib[0], sums[0], rtol=SUM_RTOL, atol=0.0),
+          "fused_scan_agg Q18: bincount disagrees")
     lines.append(dict(
         name="fused_scan_agg", max_abs_err=float((sums - psums).abs().max()),
         ms=timer(lambda: fsa.fused_scan_agg(None, (), ids, vals, G)),
         plain_ms=timer(lambda: ref.fused_scan_agg(None, (), ids, vals, G)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(lambda: (
+            torch.bincount(ids, weights=vals[0], minlength=G),
+            torch.bincount(ids, minlength=G))),
         shape=f"Q18 partial agg, no predicate, R={R}, G={G}, V=1"))
+    del lib
     del ids, vals, sums, psums, counts, pcounts
 
     # grouped_agg: Q3's residual group-by (orderkey, orderdate,
@@ -1723,6 +1758,27 @@ def stream_queries(gap_s: float):
             for i, q in enumerate(qids)]
 
 
+def check_stream(run, controls, label: str) -> dict:
+    """Hold each of a stream's results to its query's ``Jitter`` control
+    and its split to the simulation's admitted count and the per-query
+    bytes; returns how many results agreed "bitwise" and in "rows"."""
+    hows = {}
+    for key, res in run.results.items():
+        jit = controls[key.split("#")[0]]
+        how = jit.holds(res)
+        check(bool(how), f"{label}: {key} differs from its uncached run "
+              f"({agree(jit.first, res)}, {jit})")
+        hows[how] = hows.get(how, 0) + 1
+    check(run.n_pushdown + run.n_demoted == run.sim.admitted()
+          and run.n_pushdown + run.n_pushback == len(run.sim.per_request)
+          and sum(d["real_net_bytes"] for d in run.per_query.values())
+          == run.real_net_bytes,
+          f"{label}: split {run.n_pushdown}/{run.n_pushback} "
+          f"(+{run.n_demoted} demoted) against {run.sim.admitted()} "
+          f"admitted, or bytes do not add up")
+    return hows
+
+
 def stream_phase(cat, sync, card: str = "no card"):
     """All 15 queries (and Q6 twice) through ``runtime.run_stream`` in the
     four configs, each query's result held to its own uncached
@@ -1753,23 +1809,6 @@ def stream_phase(cat, sync, card: str = "no card"):
         controls[qid] = Jitter(first, lambda q=qid: compile_and_run(
             q, cat, config()).result)
 
-    def check_results(run, label):
-        hows = {}
-        for key, res in run.results.items():
-            jit = controls[key.split("#")[0]]
-            how = jit.holds(res)
-            check(bool(how), f"stream {label}: {key} differs from its "
-                  f"uncached run ({agree(jit.first, res)}, {jit})")
-            hows[how] = hows.get(how, 0) + 1
-        check(run.n_pushdown + run.n_demoted == run.sim.admitted()
-              and run.n_pushdown + run.n_pushback == len(run.sim.per_request)
-              and sum(d["real_net_bytes"] for d in run.per_query.values())
-              == run.real_net_bytes,
-              f"stream {label}: split {run.n_pushdown}/{run.n_pushback} "
-              f"(+{run.n_demoted} demoted) against {run.sim.admitted()} "
-              f"admitted, or bytes do not add up")
-        return hows
-
     def peak():
         return (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
                 if on_card else "not measured")
@@ -1781,7 +1820,7 @@ def stream_phase(cat, sync, card: str = "no card"):
                 torch.cuda.reset_peak_memory_stats()
             run = drive(run_stream, stream_queries(STREAM_GAP_S), cat,
                         config(mode, power))
-            hows = check_results(run, f"{mode} {power}")
+            hows = check_stream(run, controls, f"stream {mode} {power}")
             check(set(run.results) == {*QUERY_IDS, "Q6#1"},
                   f"stream {mode} {power}: keys {sorted(run.results)}")
             print(f"stream: {len(run.results)} queries {mode} "
@@ -1800,7 +1839,7 @@ def stream_phase(cat, sync, card: str = "no card"):
             faults=plan, retry=RetryPolicy(sleep_scale=1.0),
             breaker=CircuitBreaker(),
             hedge=HedgePolicy(fixed_delay_s=HEDGE_DELAY_S)))
-        hows = check_results(run, "chaos")
+        hows = check_stream(run, controls, "stream chaos")
         c = metrics.get_metrics().snapshot()["counters"]
         hedge = {k: int(c.get(f"hedge.{k}", 0))
                  for k in ("launched", "won", "lost")}
@@ -1932,6 +1971,296 @@ def trace_phase(cat, sync, card: str = "no card", repeats: int = 5):
     return launches
 
 
+# ------------------------------------------------------------- tier phase
+def device_used() -> str:
+    """Memory in use on the whole card (every process's contexts and
+    allocations, from ``cudaMemGetInfo``)."""
+    if not torch.cuda.is_available():
+        return "not measured"
+    free, total = torch.cuda.mem_get_info()
+    return f"{(total - free) / 1e9:.2f} GB"
+
+
+def worker_launches(pool) -> dict:
+    """Kernel launches the pool's live workers made so far, summed."""
+    out = {}
+    for snap in pool.publish_load().values():
+        for n, c in (snap or {}).get("launches", {}).items():
+            out[n] = out.get(n, 0) + c
+    return out
+
+
+def tier_phase(cat, sync, card: str = "no card"):
+    """The process storage tier: one spawned worker per catalog node holds
+    the node's partitions (shipped over the wire) and runs the kernels on
+    them. Every query in three configs through ``compile_and_run`` with
+    the pool, each held to its in-process run (results under ``Jitter``,
+    splits and real bytes equal); every query's seed-7 random decision
+    vector and the shuffle plans of Q3 and Q18 through
+    ``execute_split(tier=pool)``, held to the in-process split; the stream
+    phase's stream on the tier beside the in-process one; on a fresh pool
+    the same stream with node 0 killed mid-stream (recovered, counters
+    equal to ``pool.events``); one traced split with the workers' spans;
+    Q6 failing to error once the first pool's node 0 dies. A hang past ``TIER_DEADLINE_S`` ends
+    the process. Returns the launch counts: the parent's in the driven
+    tier runs plus those inside the first pool's workers (on the card,
+    ``predicate_bitmap``, ``fused_scan_agg`` and the shuffle kernels must
+    launch inside the workers, ``grouped_agg`` in the parent's
+    residuals)."""
+    import faulthandler
+
+    import numpy as np
+
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core import runtime
+    from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import (EngineConfig, compile_and_run,
+                                         plan_requests)
+    from repro_torch.core.faults import FaultExhausted, RetryPolicy
+    from repro_torch.distributed.workers import WorkerPool
+    from repro_torch.obs import metrics, trace
+    from repro_torch.queryproc import queries
+
+    on_card = cat.device.type == "cuda"
+    drive, launches, host_s = launch_counting(sync)
+    fast = RetryPolicy(sleep_scale=0.0)
+    marks = [time.perf_counter()]
+
+    def step(what):
+        marks.append(time.perf_counter())
+        print(f"tier: {what} in {marks[-1] - marks[-2]:.2f} s")
+
+    def config(mode="adaptive", power=1.0, **kw):
+        return EngineConfig(res=StorageResources(storage_power=power),
+                            mode=mode, device=cat.device, **kw)
+
+    def counted(name):
+        return int(metrics.get_metrics().snapshot()["counters"].get(name, 0))
+
+    def new_pool(label):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        print(f"tier: device memory in use before spawning the {label} pool "
+              f"{device_used()} [{card}]")
+        pool = WorkerPool(cat, pd_slots=TIER_SLOTS)
+        wire = pool.wire_bytes()
+        print(f"tier: {label} pool of {len(pool.workers)} workers: spawned "
+              f"and started in {pool.start_s:.2f} s, {wire['sent']} bytes "
+              f"shipped in {pool.ship_s:.2f} s "
+              f"({wire['sent'] / pool.ship_s / 1e9:.3f} GB/s), device "
+              f"memory in use {device_used()}; workers " + ", ".join(
+                  f"node {n} pid {w['pid']} on {w['device']} ({w['name']})"
+                  for n, w in pool.workers.items()) + f" [{card}]")
+        check(all(w["pid"] != os.getpid() and w["device"] == str(cat.device)
+                  for w in pool.workers.values()),
+              f"tier: workers {pool.workers} not on {cat.device}")
+        return pool
+
+    faulthandler.dump_traceback_later(TIER_DEADLINE_S, exit=True,
+                                      file=sys.__stderr__)
+    prev = metrics.set_metrics(metrics.Metrics())
+    pool = None
+    try:
+        pool = new_pool("first")
+        before = worker_launches(pool)
+        step("spawning and shipping")
+
+        # every query through the engine on the pool, beside in-process
+        controls = {}
+        for mode, power in TIER_CONFIGS:
+            for qid in QUERY_IDS:
+                base = config(mode, power, measured_feedback=False)
+                sync()
+                t0 = time.perf_counter()
+                ref = compile_and_run(qid, cat, base)
+                sync()
+                t_ref = time.perf_counter() - t0
+                jit = Jitter(ref.result,
+                             lambda q=qid, b=base: compile_and_run(
+                                 q, cat, b).result)
+                if (mode, power) == ("adaptive", 1.0):
+                    controls[qid] = jit
+                wire0 = [counted(n) for n in WIRE_COUNTERS]
+                got = drive(compile_and_run, qid, cat, dataclasses.replace(
+                    base, worker_pool=pool, retry=fast))
+                wire = [counted(n) - w for n, w in zip(WIRE_COUNTERS, wire0)]
+                how = jit.holds(got.result)
+                same = ((got.n_admitted, got.n_pushed_back,
+                         got.real_net_bytes) == (ref.n_admitted,
+                                                 ref.n_pushed_back,
+                                                 ref.real_net_bytes))
+                check(bool(how) and same and got.n_demoted == 0,
+                      f"tier {qid} {mode} {power}: result {how or 'differs'} "
+                      f"({jit}), split {got.n_admitted}/{got.n_pushed_back} "
+                      f"{got.real_net_bytes} against {ref.n_admitted}/"
+                      f"{ref.n_pushed_back} {ref.real_net_bytes}, demoted "
+                      f"{got.n_demoted}")
+                print(f"tier: {qid} {mode} {power}: wall_s={host_s['done']:.4f}"
+                      f" inproc_s={t_ref:.4f} admitted={got.n_admitted} "
+                      f"pushed_back={got.n_pushed_back} real_net_bytes="
+                      f"{got.real_net_bytes} wire.pushdown_result_bytes="
+                      f"{wire[0]} wire.pushback_ship_bytes={wire[1]} "
+                      f"agree={how} ({jit}) [{card}]")
+        step(f"{len(TIER_CONFIGS)} x 15 queries on both tiers")
+
+        # seed-7 random decision vectors, and the §4.2 shuffle plans
+        rng = np.random.default_rng(7)
+        hows = {}
+        for qid in QUERY_IDS:
+            reqs = plan_requests(queries.build_query(qid), cat)
+            dec = {r.req_id: (PUSHDOWN if rng.random() < 0.5 else PUSHBACK)
+                   for r in reqs}
+            ref = runtime.execute_split(reqs, dec)
+            got = drive(runtime.execute_split, reqs, dec, retry=fast,
+                        tier=pool)
+            for table, res in ref.merged.items():
+                jit = Jitter(res, lambda r=reqs, d=dec, t=table:
+                             runtime.execute_split(r, d).merged[t])
+                how = jit.holds(got.merged[table])
+                check(bool(how), f"tier {qid} random decisions: {table} "
+                      f"{agree(res, got.merged[table]) or 'differs'} ({jit})")
+                hows[how] = hows.get(how, 0) + 1
+            check(got.n_demoted == 0 and (got.n_pushdown, got.n_pushback,
+                                          got.real_net_bytes)
+                  == (ref.n_pushdown, ref.n_pushback, ref.real_net_bytes),
+                  f"tier {qid} random decisions: split or bytes differ")
+        print(f"tier: 15 queries under seed-7 random decision vectors "
+              f"through execute_split(tier=pool): merged tables {hows} "
+              f"[{card}]")
+        step("the random decision vectors")
+        for qid in ("Q3", "Q18"):
+            q = queries.build_query(qid)
+            plan = shuffle_plan(q, "lineitem", SHUFFLE_TARGETS)
+            reqs = [dataclasses.replace(r, plan=plan)
+                    for r in plan_requests(q, cat) if r.table == "lineitem"]
+            ref = runtime.execute_split(reqs, {})
+            jit = Jitter(ref.merged["lineitem"], lambda r=reqs:
+                         runtime.execute_split(r, {}).merged["lineitem"])
+            got = drive(runtime.execute_split, reqs, {}, retry=fast,
+                        tier=pool)
+            how = jit.holds(got.merged["lineitem"])
+            check(bool(how) and got.n_pushdown == len(reqs)
+                  and got.real_net_bytes == ref.real_net_bytes,
+                  f"tier: {qid} shuffle plan {how or 'differs'} ({jit})")
+            print(f"tier: {qid} lineitem shuffle plan by {plan.shuffle[0]} "
+                  f"into {SHUFFLE_TARGETS} targets, all pushdown on the "
+                  f"workers: wall_s={host_s['done']:.4f} result {how} ({jit})"
+                  f" [{card}]")
+        step("the shuffle plans")
+
+        # the stream, in-process and on the tier, with measured load
+        metrics.set_metrics(metrics.Metrics())
+        inproc = runtime.run_stream(stream_queries(STREAM_GAP_S), cat,
+                                    config())
+        done0 = pool.publish_load()[0]["done"]
+        # a fresh registry: the poll above published gauges, and the
+        # stream's one simulation must read what the in-process one read
+        metrics.set_metrics(metrics.Metrics())
+        run = drive(runtime.run_stream, stream_queries(STREAM_GAP_S), cat,
+                    config(worker_pool=pool))
+        items0 = pool.publish_load()[0]["done"] - done0
+        check_stream(run, controls, "tier stream")
+        print(f"tier: stream of {len(run.results)} adaptive 1.0 on the tier:"
+              f" t_decide_s={run.t_decide:.4f} wall_clock_s="
+              f"{run.wall_clock:.4f} pushdown={run.n_pushdown} pushback="
+              f"{run.n_pushback} real_net_bytes={run.real_net_bytes}; "
+              f"in-process t_decide_s={inproc.t_decide:.4f} wall_clock_s="
+              f"{inproc.wall_clock:.4f} pushdown={inproc.n_pushdown} "
+              f"pushback={inproc.n_pushback} real_net_bytes="
+              f"{inproc.real_net_bytes}; node 0 ran {items0} work items "
+              f"[{card}]")
+        check((run.n_pushdown, run.n_pushback, run.real_net_bytes)
+              == (inproc.n_pushdown, inproc.n_pushback,
+                  inproc.real_net_bytes),
+              "tier stream: split or bytes differ from in-process")
+        step("the streams")
+
+        # one traced split: the workers' spans adopted, from their pids
+        reqs = plan_requests(queries.build_query("Q6"), cat)
+        half = {r.req_id: (PUSHDOWN if i % 2 == 0 else PUSHBACK)
+                for i, r in enumerate(reqs)}
+        with trace.tracing() as tr:
+            drive(runtime.execute_split, reqs, half, retry=fast, tier=pool)
+        spans = tr.find("worker_execute") + tr.find("worker_fetch")
+        pids = {w["pid"] for w in pool.workers.values()}
+        check(tr.find("worker_execute") and tr.find("worker_fetch") and all(
+            s.attrs["pid"] in pids and s.attrs["pid"] != os.getpid()
+            and s.attrs["remote_parent"] == s.parent for s in spans),
+            "tier trace: worker spans missing or not the workers'")
+        print(f"tier: traced Q6 split: {len(spans)} worker spans adopted "
+              f"from pids {sorted({s.attrs['pid'] for s in spans})} (parent "
+              f"{os.getpid()})")
+        after = worker_launches(pool)
+        inside = {n: after.get(n, 0) - before.get(n, 0) for n in launches}
+        parent = dict(launches)
+        print(f"tier: kernel launches inside the first pool's workers "
+              f"{inside}, in the parent (replays and residuals) so far "
+              f"{parent}; device memory in use {device_used()} [{card}]")
+        if on_card:
+            # partial aggregates are fused_scan_agg's; grouped_agg runs in
+            # the residual, which stays in the parent
+            check(all(inside[n] > 0 for n in (
+                "predicate_bitmap", "fused_scan_agg", "fused_scan_shuffle",
+                "hash_partition")) and parent["grouped_agg"] > 0,
+                f"tier: launches inside the workers {inside}, parent "
+                f"{parent}")
+
+        # the fail-to-error baseline: node 0 dies at its next work item
+        pool.die_after(0, 0)
+        try:
+            drive(runtime.run_stream,
+                  [runtime.StreamQuery(queries.build_query("Q6"))], cat,
+                  config(worker_pool=pool, retry=RetryPolicy(
+                      sleep_scale=0.0, demote_on_exhaust=False)))
+        except RuntimeError as exc:
+            check(isinstance(exc.__cause__, FaultExhausted),
+                  f"tier: no-demote stream raised {exc!r}")
+            print(f"tier: Q6 with demote_on_exhaust=False after node 0 died "
+                  f"raised: {exc.__cause__}")
+        else:
+            check(False, "tier: demote_on_exhaust=False did not raise")
+        pool.close()
+        step("the traced split and the fail-to-error baseline")
+
+        # a fresh pool: node 0 dies mid-stream, the stream recovers
+        metrics.set_metrics(metrics.Metrics())
+        pool = new_pool("second")
+        k = max(1, items0 // 2)
+        pool.die_after(0, k)
+        run = drive(runtime.run_stream, stream_queries(STREAM_GAP_S), cat,
+                    config(worker_pool=pool, retry=fast))
+        check_stream(run, controls, "tier kill stream")
+        c = metrics.get_metrics().snapshot()["counters"]
+        faults_n = int(c.get("faults.crash", 0) + c.get("faults.timeout", 0))
+        check(not pool.alive(0) and run.n_demoted > 0
+              and faults_n == len(pool.events) > 0,
+              f"tier kill stream: node 0 alive {pool.alive(0)}, demoted "
+              f"{run.n_demoted}, faults {faults_n} against "
+              f"{len(pool.events)} events")
+        print(f"tier: stream with node 0 killed at its work item {k + 1}: "
+              f"wall_s={host_s['done']:.4f} demoted={run.n_demoted} "
+              f"retries={run.retries} faults.crash+timeout={faults_n} == "
+              f"pool.events={len(pool.events)} [{card}]")
+        pool.close()
+        pool = None
+        step("the second pool and the kill stream")
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        print(f"tier: device memory in use after the pools closed "
+              f"{device_used()} [{card}]")
+        for n in launches:
+            launches[n] += inside[n]
+    finally:
+        if pool is not None:
+            pool.close()
+        metrics.set_metrics(prev)
+        faulthandler.cancel_dump_traceback_later()
+    return launches
+
+
 def print_records(recs, names) -> None:
     """One line per kernel record; ``names`` label records that carry no
     ``name`` of their own."""
@@ -2033,15 +2362,21 @@ def main() -> int:
     t0 = time.perf_counter()
     traced = trace_phase(cat, torch.cuda.synchronize, smi[0])
     print(f"trace phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    tiered = tier_phase(cat, torch.cuda.synchronize, smi[0])
+    print(f"tier phase: {time.perf_counter() - t0:.2f} s")
     launches = {n: engine[n] + costed[n] + comp[n] + sec42[n] + cached[n]
-                + faulted[n] + streamed[n] + traced[n] for n in records}
+                + faulted[n] + streamed[n] + traced[n] + tiered[n]
+                for n in records}
     print("kernels: " + "; ".join(
         f"{n} check=ok launches={launches[n]} (engine {engine[n]}, costed "
         f"{costed[n]}, compiler {comp[n]}, section 4.2 {sec42[n]}, cache "
         f"{cached[n]}, faults {faulted[n]}, stream {streamed[n]}, trace "
-        f"{traced[n]})" for n in records))
+        f"{traced[n]}, tier {tiered[n]})" for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
+    for n in ("predicate_bitmap", "fused_scan_agg", "grouped_agg"):
+        check(tiered[n] > 0, f"{n} never launched on the process tier")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n],

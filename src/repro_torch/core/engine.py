@@ -22,7 +22,9 @@ oracle split of one query (Fig 7); ``core.runtime.run_stream`` drives
 an arrival-timed stream of queries on worker pools. With
 ``measured_feedback`` (the default) the Arbitrator's backlog guard reads
 the queue depths a running stream publishes, and its fluid queue where
-none was published.
+none was published. With ``storage_tier="process"`` (or a
+``worker_pool``) the storage side runs in one worker process per catalog
+node (``distributed.workers``), with the same results.
 
 Modes: no_pushdown / eager / adaptive / adaptive_pa (§6.2 baselines).
 """
@@ -49,10 +51,42 @@ from repro_torch.obs.metrics import get_metrics
 from repro_torch.queryproc.table import ColumnTable
 from repro_torch.storage.catalog import Catalog, Partition
 
-__all__ = ["MODES", "EngineConfig", "PlannedRequest", "QueryRun",
-           "compile_and_run", "execute_requests", "plan_requests",
-           "run_concurrent", "run_query", "results_equal",
-           "theoretical_split"]
+__all__ = ["MODES", "STORAGE_TIERS", "EngineConfig", "PlannedRequest",
+           "QueryRun", "compile_and_run", "execute_requests",
+           "plan_requests", "resolve_tier", "run_concurrent", "run_query",
+           "results_equal", "theoretical_split"]
+
+# storage tiers (EngineConfig.storage_tier): where a split's storage side
+# runs. "inproc": in this process (the oracle). "process": one worker
+# process per catalog node (distributed.workers.WorkerPool), plans and
+# results over a wire, real worker faults recovered by retry -> demote;
+# the results are the same for any decision vector and fault schedule
+STORAGE_INPROC = "inproc"
+STORAGE_PROCESS = "process"
+STORAGE_TIERS = (STORAGE_INPROC, STORAGE_PROCESS)
+
+
+def resolve_tier(cfg, catalog: Catalog):
+    """The worker pool a config's storage tier runs through, or None for
+    the in-process oracle. ``cfg.worker_pool`` wins over the named tier;
+    ``storage_tier="process"`` gets the catalog's shared pool
+    (``workers.pool_for``, ``cfg.res.pd_slots`` threads a worker). The
+    pool must run on the config's device."""
+    pool = cfg.worker_pool
+    if pool is None:
+        if cfg.storage_tier in (None, STORAGE_INPROC):
+            return None
+        if cfg.storage_tier != STORAGE_PROCESS:
+            raise ValueError(f"unknown storage_tier {cfg.storage_tier!r}; "
+                             f"expected one of {STORAGE_TIERS}")
+        from repro_torch.distributed.workers import pool_for  # lazy: keeps
+        #   multiprocessing off the in-process import path
+        pool = pool_for(catalog, pd_slots=cfg.res.pd_slots)
+    dev = resolve_device(cfg.device)
+    if pool.device != dev:
+        raise ValueError(f"the worker pool runs on {pool.device}, the engine "
+                         f"is configured for {dev}")
+    return pool
 
 
 @dataclasses.dataclass
@@ -84,6 +118,11 @@ class EngineConfig:
     retry: Optional[object] = None        # faults.RetryPolicy
     hedge: Optional[object] = None        # faults.HedgePolicy (run_stream)
     breaker: Optional[object] = None      # faults.CircuitBreaker
+    # STORAGE_TIERS: "process" runs the storage side in worker processes
+    # (same results); `worker_pool` (a distributed.workers.WorkerPool)
+    # names the pool and wins over the tier
+    storage_tier: str = STORAGE_INPROC
+    worker_pool: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -193,15 +232,17 @@ def nonpushable_time(merged: Dict[str, ColumnTable], cfg: EngineConfig
 
 def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
                  cfg: EngineConfig, t_pushable: float, net_bytes: float,
-                 bitmaps: Optional[Dict[int, torch.Tensor]] = None
-                 ) -> QueryRun:
-    """Execute the split ``sim`` decided for ``reqs``, feed the corrector,
-    run the residual and reconcile the bytes."""
+                 bitmaps: Optional[Dict[int, torch.Tensor]] = None,
+                 tier=None) -> QueryRun:
+    """Execute the split ``sim`` decided for ``reqs`` (its storage side on
+    ``tier``'s workers when given), feed the corrector, run the residual
+    and reconcile the bytes."""
     tr = obs_trace.get_tracer()
     split = runtime.execute_split(reqs, sim.decisions(), bitmaps,
                                   executor=cfg.executor,
                                   cache=cfg.result_cache, faults=cfg.faults,
-                                  retry=cfg.retry, breaker=cfg.breaker)
+                                  retry=cfg.retry, breaker=cfg.breaker,
+                                  tier=tier)
     # one decision vector, two uses: every admitted request ran pushdown
     # or, its retries exhausted, was demoted to pushback
     admitted = sim.admitted(query.qid)
@@ -276,7 +317,8 @@ def run_query(query, catalog: Catalog, cfg: EngineConfig,
                        cfg.res, cfg.mode, measured=_measured_of(cfg),
                        breaker=cfg.breaker)
         run = _run_decided(query, reqs, sim, cfg, sim.makespan,
-                           sim.net_bytes, bitmaps)
+                           sim.net_bytes, bitmaps,
+                           tier=resolve_tier(cfg, catalog))
         if tr.enabled:
             _set_query_attrs(qs, run)
     return run
@@ -298,6 +340,7 @@ def run_concurrent(queries, catalog: Catalog, cfg: EngineConfig
                     for r in all_reqs], cfg.res, cfg.mode,
                    measured=_measured_of(cfg), breaker=cfg.breaker)
     tr = obs_trace.get_tracer()
+    tier = resolve_tier(cfg, catalog)
     out: Dict[str, QueryRun] = {}
     for q in queries:
         with tr.span("query", qid=q.qid, mode=cfg.mode,
@@ -305,7 +348,7 @@ def run_concurrent(queries, catalog: Catalog, cfg: EngineConfig
             run = _run_decided(
                 q, [r for r in all_reqs if r.query_id == q.qid], sim, cfg,
                 t_pushable=sim.finish_by_query[q.qid],
-                net_bytes=sim.net_bytes_by_query[q.qid])
+                net_bytes=sim.net_bytes_by_query[q.qid], tier=tier)
             if tr.enabled:
                 _set_query_attrs(qs, run)
         out[q.qid] = run

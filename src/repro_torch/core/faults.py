@@ -1,7 +1,6 @@
 """Deterministic fault injection and the runtime's recovery contract.
 
-Port of ``repro.core.faults`` without the process tier's real worker
-faults (``WorkerFault``). The same environment variables, the
+Port of ``repro.core.faults``. The same environment variables, the
 same spec grammar and the same draws, so a schedule injects the same
 faults at the same (node, path, table, group, attempt) coordinates as the
 JAX package's:
@@ -72,6 +71,26 @@ class FaultExhausted(RuntimeError):
         self.path = path
         self.table = table
         self.attempts = attempts
+
+
+class WorkerFault(RuntimeError):
+    """A real storage-worker failure seen at the channel of the process
+    tier (``distributed.workers``): the worker process died (``crash``:
+    its channel hit EOF, say after a SIGKILL) or a request outlived the
+    channel's deadline (``timeout``). The recovery loop treats it as an
+    injected fault of the same kind (charged, counted, retried, then
+    demoted), except that a real timeout is not slept again. The pool
+    ledgers every one in ``WorkerPool.events``."""
+
+    def __init__(self, kind: str, node: int, detail: str = ""):
+        if kind not in (FAULT_CRASH, FAULT_TIMEOUT):
+            raise ValueError(f"a worker fault is a crash or a timeout, "
+                             f"not {kind!r}")
+        super().__init__(f"storage worker {kind} on node {node}"
+                         + (f": {detail}" if detail else ""))
+        self.kind = kind
+        self.node = node
+        self.detail = detail
 
 
 class HedgeAborted(RuntimeError):

@@ -1,7 +1,6 @@
 """Decision-faithful runtime: the Arbitrator's decisions route real work.
 
-Port of the in-process path of ``repro.core.runtime`` (the process tier
-is not ported):
+Port of ``repro.core.runtime``:
 
 - pushdown requests run storage-side through the batched executor and
   ship only their results;
@@ -25,6 +24,13 @@ storage-execute boundary, failures retry under the charged deadline, and
 an exhausted pushdown group is demoted to pushback, which is the pushback
 path itself, on the same kernels. Without a plan and a cache the split
 runs as it did before either existed.
+
+A ``tier`` (a ``distributed.workers.WorkerPool``) runs the storage side
+in worker processes: pushdown groups on the node's worker, pushback
+groups fetched from it as serialized bytes and replayed here. A dead or
+overdue worker raises ``core.faults.WorkerFault``, which the recovery
+loop treats as a fault of its kind; a demoted group replays from this
+process's catalog copy.
 
 ``run_stream`` is the arrival-timed driver of many queries at once:
 per-node worker pools sized by the slot pools, dispatch ordered by the
@@ -116,11 +122,21 @@ def pushback_bytes(cplan: CompiledPushPlan, data: ColumnTable) -> int:
 def _exec_group(cplan: CompiledPushPlan, sub, path: str, executor: str,
                 bitmaps: Optional[Dict[int, torch.Tensor]] = None,
                 shipped: Optional[List[ColumnTable]] = None,
-                cache=None) -> List[Tuple[ColumnTable, Dict]]:
+                cache=None, tier=None,
+                parent: Optional[obs_trace.Span] = None
+                ) -> List[Tuple[ColumnTable, Dict]]:
     """Execute one same-(table, plan, path) request group: pushdown over
     the partitions, pushback over raw projections replayed compute-side
     (``shipped``: projections the stream driver already copied). ``cache``
-    serves and fills the storage-side pushdown path only."""
+    serves and fills the storage-side pushdown path only. ``tier`` sends
+    a pushdown group to its node's worker process, and fetches a pushback
+    group's projections from it to replay here; ``parent`` is the span
+    the worker's spans are adopted under."""
+    if tier is not None and shipped is None:
+        if path == PUSHDOWN:
+            return tier.execute_group(cplan, sub, executor, bitmaps=bitmaps,
+                                      parent=parent)
+        shipped = tier.fetch_projection(cplan, sub, parent=parent)
     if shipped is not None:
         tabs = shipped
     elif path == PUSHDOWN:
@@ -144,7 +160,7 @@ def _exec_group_traced(cplan: CompiledPushPlan, sub, path: str,
                        bitmaps: Optional[Dict[int, torch.Tensor]] = None,
                        shipped: Optional[List[ColumnTable]] = None,
                        parent: Optional[obs_trace.Span] = None,
-                       node: Optional[int] = None, cache=None
+                       node: Optional[int] = None, cache=None, tier=None
                        ) -> Tuple[List[Tuple[ColumnTable, Dict]],
                                   obs_trace.Span]:
     """``_exec_group`` under a span (child of ``parent`` when given),
@@ -156,7 +172,7 @@ def _exec_group_traced(cplan: CompiledPushPlan, sub, path: str,
     with tr.span(name, parent=parent, table=sub[0].table, n_parts=len(sub),
                  node=node) as sp:
         out = _exec_group(cplan, sub, path, executor, bitmaps=bitmaps,
-                          shipped=shipped, cache=cache)
+                          shipped=shipped, cache=cache, tier=tier, parent=sp)
         if tr.enabled:
             sp.set(rows_out=int(sum(len(res) for res, _ in out)),
                    signature=plan_signature(cplan.plan),
@@ -174,32 +190,38 @@ class GroupRecovery:
 
 
 def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
-                          executor: str, faults: "_faults.FaultPlan",
+                          executor: str,
+                          faults: Optional["_faults.FaultPlan"],
                           retry: "_faults.RetryPolicy",
                           breaker: Optional["_faults.CircuitBreaker"] = None,
                           bitmaps: Optional[Dict[int, torch.Tensor]] = None,
                           shipped: Optional[List[ColumnTable]] = None,
                           parent: Optional[obs_trace.Span] = None,
                           node: Optional[int] = None, cache=None,
-                          salt: str = "",
+                          salt: str = "", tier=None,
                           abort: Optional[threading.Event] = None
                           ) -> Tuple[List[Tuple[ColumnTable, Dict]],
                                      obs_trace.Span, GroupRecovery]:
     """``_exec_group_traced`` under the fault and recovery contract.
 
-    Each attempt draws from the ``FaultPlan`` at the storage-execute
-    boundary, keyed ``"<min req_id>x<n requests>"``. A ``straggler``
-    completes late (its delay charged, and slept scaled by
+    Each attempt draws from the ``FaultPlan`` (when there is one) at the
+    storage-execute boundary, keyed ``"<min req_id>x<n requests>"``. A
+    ``straggler`` completes late (its delay charged, and slept scaled by
     ``retry.real_scale()``); ``crash``/``timeout``/``transient`` abort the
     attempt, charge the deadline their nominal detection cost and retry
-    after capped exponential backoff with deterministic jitter. On
-    exhaustion (attempts or charged budget):
+    after capped exponential backoff with deterministic jitter. On the
+    process ``tier`` a real :class:`core.faults.WorkerFault` (a dead or
+    overdue worker) is handled as an injected fault of its kind, except
+    that a real timeout has already waited on the wire and is not slept.
+    On exhaustion (attempts or charged budget):
 
     - ``retry.demote_on_exhaust``: a pushdown group is **demoted to
       pushback** (the raw projection shipped and replayed compute-side on
       the same kernels); a pushback group replays from the durable
       projection (``retry.local_replays``). The fallback is not drawn
-      from the schedule again: recovery lies outside the fault model.
+      from the schedule again, and runs in this process from its own
+      catalog copy whatever the tier: recovery lies outside the fault
+      model.
     - otherwise: raise ``core.faults.FaultExhausted``, the fail-to-error
       baseline.
 
@@ -223,7 +245,9 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
     while True:
         if abort is not None and abort.is_set():
             raise _faults.HedgeAborted(node_id, path, table)
-        action = faults.draw(node_id, path, table, key, attempt, salt)
+        action = faults.draw(node_id, path, table, key, attempt, salt) \
+            if faults is not None else None
+        real = False
         if action is None or action.kind == _faults.FAULT_STRAGGLER:
             if action is not None:
                 m.counter(f"faults.{_faults.FAULT_STRAGGLER}").inc()
@@ -237,31 +261,39 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
                              delay_s=delay)
                 if delay * scale > 0:
                     time.sleep(delay * scale)
-            out, sp = _exec_group_traced(cplan, sub, path, executor,
-                                         bitmaps=bitmaps, shipped=shipped,
-                                         parent=parent, node=node_id,
-                                         cache=cache)
-            rec.attempts = attempt
-            m.counter(f"faults.node{node_id}.{path}.successes").inc()
-            if breaker is not None:
-                breaker.record_success(node_id, path)
-            return out, sp, rec
-        kind = action.kind
-        rec.injected.append(kind)
+            try:
+                out, sp = _exec_group_traced(cplan, sub, path, executor,
+                                             bitmaps=bitmaps, shipped=shipped,
+                                             parent=parent, node=node_id,
+                                             cache=cache, tier=tier)
+            except _faults.WorkerFault as wf:
+                kind, real = wf.kind, True
+            else:
+                rec.attempts = attempt
+                m.counter(f"faults.node{node_id}.{path}.successes").inc()
+                if breaker is not None:
+                    breaker.record_success(node_id, path)
+                return out, sp, rec
+        else:
+            kind = action.kind
+            rec.injected.append(kind)
         m.counter(f"faults.{kind}").inc()
         m.counter(f"faults.node{node_id}.{path}.failures").inc()
         if breaker is not None:
             breaker.record_failure(node_id, path)
         if tr.enabled:
-            tr.event("fault_injected", parent=parent, kind=kind,
-                     node=node_id, table=table, path=path, attempt=attempt)
+            tr.event("worker_fault" if real else "fault_injected",
+                     parent=parent, kind=kind, node=node_id, table=table,
+                     path=path, attempt=attempt)
         charge = retry.charge(kind)
         budget -= charge
-        if kind == _faults.FAULT_TIMEOUT and charge * scale > 0:
-            time.sleep(charge * scale)  # a timeout waits the attempt out
+        if not real and kind == _faults.FAULT_TIMEOUT and charge * scale > 0:
+            time.sleep(charge * scale)  # an injected timeout waits the
+            #   attempt out; a real one already did, on the wire
         if attempt < retry.max_attempts and budget > 0:
             back = retry.backoff_s(attempt, faults.jitter(
-                node_id, path, table, key, attempt))
+                node_id, path, table, key, attempt)
+                if faults is not None else 0.5)
             budget -= back
             if budget > 0:
                 rec.retries += 1
@@ -298,7 +330,8 @@ def _exec_group_recovered(cplan: CompiledPushPlan, sub, path: str,
 def execute_split(reqs, decisions: Dict[int, str],
                   bitmaps: Optional[Dict[int, torch.Tensor]] = None,
                   executor: str = EXECUTOR_BATCHED, cache=None,
-                  faults=None, retry=None, breaker=None) -> SplitExecution:
+                  faults=None, retry=None, breaker=None,
+                  tier=None) -> SplitExecution:
     """Route every request down its decided path and merge.
 
     ``reqs`` are ``engine.PlannedRequest``s; ``decisions`` maps
@@ -315,12 +348,18 @@ def execute_split(reqs, decisions: Dict[int, str],
     plan (passed in, or from ``REPRO_FAULT_SPEC``) groups split further
     per storage node, the fleet's failure unit, and each runs through the
     recovery loop; the split then carries ``n_demoted``, ``retries`` and
-    ``faults_injected``."""
+    ``faults_injected``. ``tier`` (a ``distributed.workers.WorkerPool``)
+    runs the storage side in its worker processes: groups split per node
+    (each worker holds its node's partitions), the recovery loop is armed
+    so that a real worker fault retries and demotes, and the cache is
+    bypassed (the workers hold the storage side)."""
     if faults is None:
         faults = _faults.env_plan()
-    recovered = faults is not None
+    recovered = faults is not None or tier is not None
     if recovered and retry is None:
         retry = _faults.RetryPolicy()
+    if tier is not None:
+        cache = None
     tr = obs_trace.get_tracer()
     with tr.span("execute_split", n_requests=len(reqs)) as es:
         per_req: Dict[int, ColumnTable] = {}
@@ -347,7 +386,8 @@ def execute_split(reqs, decisions: Dict[int, str],
                 else:
                     out, gsp, rec = _exec_group_recovered(
                         cplan, sub, path, executor, faults, retry,
-                        breaker=breaker, bitmaps=bitmaps, cache=cache)
+                        breaker=breaker, bitmaps=bitmaps, cache=cache,
+                        tier=tier)
                     retries += rec.retries
                     injected += len(rec.injected)
                 demoted = rec is not None and rec.demoted \
@@ -527,8 +567,16 @@ def run_stream(stream: Sequence[StreamQuery], catalog, cfg,
     Every worker launches on the current stream of the catalog's device,
     which a pool thread leaves at the device's default stream: all
     workers share one CUDA stream, so the card runs their kernels one
-    after another, in the order the host queued them. Only the in-process
-    storage tier is ported. ``cfg.device`` must hold the catalog.
+    after another, in the order the host queued them. ``cfg.device`` must
+    hold the catalog.
+
+    On the process tier (``cfg.storage_tier="process"`` or
+    ``cfg.worker_pool``) every storage group runs through the recovery
+    loop on its node's worker process: pushdown on the exec pool, the
+    pushback fetch on the transfer pool (a dead worker mid-fetch retries
+    and replays locally), neither gated by the core semaphore (the thread
+    waits on the wire), and each dispatch wave polls the workers' load
+    into the gauges.
     """
     from repro_torch.core import engine as _engine  # engine imports us
     _engine._check_catalog(catalog, cfg)
@@ -591,7 +639,10 @@ def _run_stream_body(stream, catalog, cfg, time_scale, tr, stream_span,
                                                 max(2, ncpu))))
 
     faults = cfg.faults if cfg.faults is not None else _faults.env_plan()
-    recovered = faults is not None
+    # the process tier arms the recovery loop: real worker faults retry
+    # and demote even without a fault plan
+    tier = _engine.resolve_tier(cfg, catalog)
+    recovered = faults is not None or tier is not None
     retry = cfg.retry
     if recovered and retry is None:
         retry = _faults.RetryPolicy()
@@ -611,6 +662,12 @@ def _run_stream_body(stream, catalog, cfg, time_scale, tr, stream_span,
         with cores:
             return fn(*args, **kw)
 
+    def ungated(fn, *args, **kw):
+        return fn(*args, **kw)
+    # on the process tier a storage thread waits on the wire while the
+    # worker process works: the core semaphore would serialize the waits
+    gate = on_core if tier is None else ungated
+
     def exec_group(cplan, sub, path, shipped=None, qspan=None, node=None,
                    salt="", abort=None):
         """One storage-execute (or replay) group, through the recovery
@@ -626,17 +683,25 @@ def _run_stream_body(stream, catalog, cfg, time_scale, tr, stream_span,
             out, sp, rec = _exec_group_recovered(
                 cplan, sub, path, cfg.executor, faults, retry,
                 breaker=breaker, shipped=shipped, parent=qspan, node=node,
-                cache=cache, salt=salt, abort=abort)
+                cache=cache, salt=salt, tier=tier, abort=abort)
         device_done()
         return out, sp, rec, time.perf_counter() - t_ex
 
     def sample_wave(qspan) -> None:
         """The load at each dispatch wave: the slot pools' queue depths
-        and the free cores, written to the gauges ``MeasuredLoad`` reads
-        and, when tracing, stamped on the query as a ``wave_sample``."""
+        and the free cores, or on the process tier each worker's own
+        snapshot polled over the wire (``WorkerPool.publish_load``),
+        written to the gauges ``MeasuredLoad`` reads and, when tracing,
+        stamped on the query as a ``wave_sample``."""
         cores_free = getattr(cores, "_value", None)
         if cores_free is not None:
             metrics.gauge("stream.cores_free").set(cores_free)
+        if tier is not None:
+            loads = tier.publish_load()
+            if tr.enabled:
+                tr.event("wave_sample", parent=qspan, worker_loads=loads,
+                         cores_free=cores_free)
+            return
         exec_q = {n: exec_pools[n]._work_queue.qsize() for n in nodes}
         ship_q = {n: ship_pools[n]._work_queue.qsize() for n in nodes}
         for n in nodes:
@@ -664,7 +729,13 @@ def _run_stream_body(stream, catalog, cfg, time_scale, tr, stream_span,
             abort = threading.Event() if hedge is not None else None
             if path == PUSHDOWN:
                 fut = exec_pools[node].submit(
-                    on_core, exec_group, cplan, sub, path,
+                    gate, exec_group, cplan, sub, path,
+                    qspan=qspan, node=node, abort=abort)
+            elif tier is not None:
+                # the fetch is a wire transfer made inside the recovery
+                # loop, on the node's transfer pool; the replay follows
+                fut = ship_pools[node].submit(
+                    gate, exec_group, cplan, sub, path,
                     qspan=qspan, node=node, abort=abort)
             else:
                 ship_fut = ship_pools[node].submit(
@@ -707,7 +778,7 @@ def _run_stream_body(stream, catalog, cfg, time_scale, tr, stream_span,
                              table=sub[0].table, delay_s=delay)
                 dup_abort = threading.Event()
                 dup = exec_pools[node].submit(
-                    on_core, exec_group, cplan, sub, path, qspan=qspan,
+                    gate, exec_group, cplan, sub, path, qspan=qspan,
                     node=node, salt="hedge", abort=dup_abort)
                 done, _ = fut_wait({fut, dup}, return_when=FIRST_COMPLETED)
                 if fut not in done:                # the original preferred

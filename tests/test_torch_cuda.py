@@ -969,3 +969,84 @@ def test_traced_card_run_holds_no_multi_element_tensor_in_its_spans(
     export.to_chrome_trace(tr, tmp_path / "t.json")
     _, spans = export.from_jsonl(export.to_jsonl(tr, tmp_path / "t.jsonl"))
     assert len(spans) == len(tr.snapshot())
+
+
+# ----------------------------------------------------------- process tier
+def _worker_launches(pool):
+    out = dict.fromkeys(kernels.WRAPPERS, 0)
+    for snap in pool.publish_load().values():
+        for n, c in (snap or {}).get("launches", {}).items():
+            out[n] += c
+    return out
+
+
+def test_process_tier_on_the_card_matches_in_process(cuda, catalogs,
+                                                     fresh_metrics):
+    """A 2-node pool of workers on the card: every query eager and Q1, Q6,
+    Q18 adaptive at power 0.1 equal the in-process runs (rows, sums
+    within SUM_RTOL; split and real bytes equal); the workers launch
+    ``predicate_bitmap`` and ``fused_scan_agg`` themselves, and the
+    parent's residuals ``grouped_agg``; after ``kill(0)`` node 0's groups
+    demote and the result holds."""
+    import os
+    import time
+    from repro_torch.core.faults import RetryPolicy
+    from repro_torch.distributed.workers import WorkerPool
+    gpu, _ = catalogs
+    pool = WorkerPool(gpu, pd_slots=2)
+    try:
+        assert all(w["device"] == str(gpu.device) and w["pid"] != os.getpid()
+                   for w in pool.workers.values())
+        before = _worker_launches(pool)
+        kernels.reset_launches()
+        runs = [(q, "eager", 1.0) for q in queries.QUERY_IDS] + \
+            [(q, "adaptive", 0.1) for q in ("Q1", "Q6", "Q18")]
+        for qid, mode, power in runs:
+            base = EngineConfig(res=StorageResources(storage_power=power),
+                                mode=mode, device=cuda,
+                                measured_feedback=False)
+            ref = run_query(queries.build_query(qid), gpu, base)
+            got = run_query(queries.build_query(qid), gpu,
+                            dataclasses.replace(
+                                base, worker_pool=pool,
+                                retry=RetryPolicy(sleep_scale=0.0)))
+            assert results_equal(ref.result, got.result, tol=SUM_RTOL), qid
+            assert (got.n_admitted, got.n_pushed_back, got.real_net_bytes) \
+                == (ref.n_admitted, ref.n_pushed_back, ref.real_net_bytes)
+        parent = kernels.launches()
+        inside = {n: c - before[n]
+                  for n, c in _worker_launches(pool).items()}
+        assert inside["predicate_bitmap"] > 0 and inside["fused_scan_agg"] > 0
+        assert parent["grouped_agg"] > 0
+        pool.kill(0)
+        deadline = time.monotonic() + 10.0
+        while pool.alive(0) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        cfg = EngineConfig(mode="eager", device=cuda, measured_feedback=False)
+        ref = run_query(queries.build_query("Q6"), gpu, cfg)
+        got = run_query(queries.build_query("Q6"), gpu, dataclasses.replace(
+            cfg, worker_pool=pool, retry=RetryPolicy(sleep_scale=0.0)))
+        assert results_equal(ref.result, got.result, tol=SUM_RTOL)
+        assert got.n_demoted == sum(1 for r in got.requests
+                                    if r.part.node_id == 0) > 0
+        assert pool.fault_counts()["crash"] > 0
+    finally:
+        pool.close()
+
+
+def test_a_worker_that_cannot_use_cuda_fails_the_pool(cuda, catalogs):
+    """Children spawned without a visible card cannot start: the pool
+    raises their error rather than running them on the plain versions."""
+    import os
+    from repro_torch.distributed.workers import WorkerPool
+    gpu, _ = catalogs
+    old = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        with pytest.raises(RuntimeError, match="could not start on cuda"):
+            WorkerPool(gpu, pd_slots=1)
+    finally:
+        if old is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = old

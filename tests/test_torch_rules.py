@@ -6,6 +6,8 @@
 - Entry points run on the GPU by default: without one they raise instead of
   running on the CPU, and a kernel wrapper given a tensor on a device other
   than the CPU launches its kernel or raises, never falls back.
+- The process tier spawns its workers (``distributed/workers.py``); no
+  file of the port forks.
 - ``chip_smoke.py`` exits non-zero, printing no result, without a GPU and
   in a directory that holds nothing else of the repository.
 """
@@ -41,7 +43,31 @@ def test_the_rules_cover_the_cost_based_modules():
             "core/runtime.py", "core/simulator.py", "obs/metrics.py",
             "obs/trace.py", "core/result_cache.py",
             "core/faults.py", "obs/export.py", "core/arbitrator.py",
-            "core/executor.py"} <= names
+            "core/executor.py", "distributed/__init__.py",
+            "distributed/workers.py"} <= names
+
+
+def _start_methods(path: Path):
+    """The start methods ``path`` asks ``multiprocessing`` for: the first
+    argument of every ``get_context``/``set_start_method`` call."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                "get_context", "set_start_method"):
+            arg = node.args[0] if node.args else None
+            yield arg.value if isinstance(arg, ast.Constant) else arg
+
+
+def test_the_process_tier_spawns_its_workers():
+    """A child forked after its parent initialized CUDA cannot use CUDA:
+    the port's workers are spawned, and nothing in the port forks."""
+    dist = sorted((ROOT / "src" / "repro_torch" / "distributed").rglob(
+        "*.py"))
+    assert [p.name for p in dist] == ["__init__.py", "workers.py"]
+    assert list(_start_methods(dist[1])) == ["spawn"]
+    for path in PORT_FILES:
+        assert "fork" not in set(_start_methods(path)), path
+        assert "os.fork" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
