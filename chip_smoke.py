@@ -40,7 +40,21 @@ GPU is present. Phases:
    at power 0.1 Q1 and Q3 must split between pushdown and pushback; the
    splits and bytes of Q1, Q3, Q6, Q12 and Q19 are compared with the hand-
    built plans' (``PR14_ADAPTIVE_LOW``).
-4. Costed: every query through ``compile_and_run(cost_based=True)`` in
+4. Tensor: the residual's tensor backend (``EngineConfig.residual=
+   "tensor"``) on the same catalog. Each query compiled once, one
+   observe pass through ``run_query``, the interpreter's and the tensor
+   backend's residual times on the eager merged tables (medians of 5),
+   stages, each aggregate's ``code``/``lex`` and each join's
+   ``lut``/``sorted`` lowering and the ``grouped_agg`` launches and
+   regimes, each of the stages' ``grouped_agg`` calls in the cold run held
+   to the plain version at its shape (every query with a keyed sum, mean
+   or count calls it; ``code`` and ``lex`` aggregates both held); the
+   four configs warm (no fallback, no program missed), each
+   agreeing with the engine phase's interpreter run bitwise or in rows;
+   the calibrated crossover, ``residual="auto"`` runs of Q1 and Q18, and
+   the stream phase's stream with the tensor backend; no
+   ``residual.errors``.
+5. Costed: every query through ``compile_and_run(cost_based=True)`` in
    the same four configurations, each equal to its maximal-frontier
    result, with each table's chosen and maximal cut, scores, bitmap
    exchange and lowered predicate; the ``CardinalityCorrector`` learning
@@ -48,7 +62,7 @@ GPU is present. Phases:
    after it; all 15 queries through ``run_concurrent`` in adaptive_pa at
    power 0.1; each query's oracle splits (``theoretical_split``,
    ``optimum.simulated_optimum``, Eq 6) at power 0.1 beside adaptive's.
-5. Compiler: a second catalog from the same arrays, lineitem clustered by
+6. Compiler: a second catalog from the same arrays, lineitem clustered by
    ``l_orderkey``. Q18 compiled for it pushes its HAVING and must equal
    Q18 on the first catalog; a custom IR's ``TopK`` absorbed over a
    filtered lineitem scan must equal ``torch.topk`` over the whole table;
@@ -56,7 +70,7 @@ GPU is present. Phases:
    over the whole table. ``predicate_bitmap`` is timed on the HAVING
    program over the clustered partial aggregate. The catalog is dropped
    before the next phase.
-6. §4.2 operators on the first catalog: the Fig-3 storage-side bitmap with
+7. §4.2 operators on the first catalog: the Fig-3 storage-side bitmap with
    the cached columns masked by ``bitmap_apply``, the Fig-4 compute-side
    bitmap, the storage-side shuffle of lineitem and orders against the
    compute-side one, the shuffle plans of Q3, Q12 and Q19 with their
@@ -64,7 +78,7 @@ GPU is present. Phases:
    with shuffle pushdown. Every result is held to the plain operators,
    bitwise. The host-clock time of each ``apply_bitmap_to_cache`` call is
    printed alone (until it returns, and until the card is done).
-7. Result cache on the first catalog: every query eager uncached, cold
+8. Result cache on the first catalog: every query eager uncached, cold
    and warm through a fresh ``ResultCache`` (2 GiB), both cached results
    equal to the uncached one: bitwise, or in rows with sums within
    ``SUM_RTOL`` when the query's uncached runs also differ in bits (the
@@ -77,7 +91,7 @@ GPU is present. Phases:
    appends to a small catalog of its own never serving stale rows (in
    rows: the claim there is freshness); a §4.2
    shuffle plan cold and warm, slices and position vectors bitwise.
-8. Faults: every query adaptive under ``CHAOS_SPEC`` (seed: the query's
+9. Faults: every query adaptive under ``CHAOS_SPEC`` (seed: the query's
    number) with ``RetryPolicy(sleep_scale=0.0)`` and a ``CircuitBreaker``,
    equal to its clean run (under the same control), ``n_pushdown +
    n_demoted == n_admitted``, the ``faults.*`` counters equal to the
@@ -85,7 +99,7 @@ GPU is present. Phases:
    plans of Q3 and Q18 (``fused_scan_shuffle``, ``hash_partition``)
    split under the same plan; Q6 under a certain pushdown crash; the
    fail-to-error baseline raising ``FaultExhausted``.
-9. Stream: all 15 queries, and Q6 again (``Q6#1``), arriving
+10. Stream: all 15 queries, and Q6 again (``Q6#1``), arriving
    ``STREAM_GAP_S`` apart through ``repro_torch.core.runtime.run_stream``
    in the four configs, each result held to its query's uncached
    ``compile_and_run`` (under the same control), ``n_pushdown +
@@ -94,13 +108,13 @@ GPU is present. Phases:
    sleeps and ``HedgePolicy(fixed_delay_s=HEDGE_DELAY_S)``, whose hedges
    must fire and add up (``won + lost == launched``). Walls and peak
    device memory per stream.
-10. Trace: one adaptive stream traced into a ``JsonlStreamWriter`` and a
+11. Trace: one adaptive stream traced into a ``JsonlStreamWriter`` and a
    Chrome trace (in a temporary directory) under ``torch.profiler``: each
    span name's self time (``span_attribution``), the device's busy time
    and idle share (``1 - busy / wall``) over the same window; then the
    stream untraced and traced five times each, ``gc.collect()`` before
    every run, and their medians.
-11. Process tier: one spawned storage-worker process per node (4), each
+12. Process tier: one spawned storage-worker process per node (4), each
    holding its node's partitions on the card (shipped over the wire
    codec) and running the kernels on them; spawn and ship times, and the
    device memory in use across the card (``mem_get_info``) before
@@ -116,7 +130,7 @@ GPU is present. Phases:
    ``pool.events``); one traced split whose worker spans carry the
    workers' pids; Q6 failing to error without demotion once the first
    pool's node 0 dies. A hang past ``TIER_DEADLINE_S`` ends the script.
-12. Prints each kernel's launches in phases 3 to 11 (all must be above 0,
+13. Prints each kernel's launches in phases 3 to 12 (all must be above 0,
    and on the tier ``predicate_bitmap``, ``fused_scan_agg`` and the two
    shuffle kernels inside the workers, ``grouped_agg`` in the parent's
    residuals), the per-kernel JSON line and, last, the ``{"ok": true,
@@ -744,6 +758,65 @@ def grouped_agg_regimes(seen: list):
         ga.run_plan = run_plan
 
 
+@contextlib.contextmanager
+def tensor_agg_held(held: list):
+    """Hold every ``grouped_agg`` call that the tensor backend's stage
+    programs make inside the block against ``kernels.ref.grouped_agg`` on
+    the same (ids, values, G), at the shapes the stages give it (a ``lex``
+    aggregate: G = the bucket's rows; a ``code`` one: G = the code's
+    domain; invalid rows parked at id G, which the kernel must drop):
+    counts equal, sums within ``SUM_RTOL``. Only the tensor backend's own
+    calls are held (through ``tensorize``'s name for the kernel module);
+    ``held`` gets ``(rows, G, rows dropped, max_abs_err)`` for each."""
+    from repro_torch.compiler import tensorize
+    from repro_torch.kernels import ref
+    real = tensorize.gak
+
+    class Held:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def grouped_agg(ids, values, G):
+            sums, counts = real.grouped_agg(ids, values, G)
+            psums, pcounts = ref.grouped_agg(ids, values, G)
+            label = f"tensor: grouped_agg (R={ids.shape[0]}, G={G})"
+            check(torch.equal(counts, pcounts), f"{label}: counts differ")
+            err = 0.0
+            if values is not None and G > 0:
+                check(torch.allclose(sums, psums, rtol=SUM_RTOL, atol=0.0),
+                      f"{label}: sums differ beyond rtol {SUM_RTOL}")
+                err = float((sums - psums).abs().max())
+            dropped = int(((ids < 0) | (ids >= G)).sum())
+            held.append((ids.shape[0], G, dropped, err))
+            return sums, counts
+    tensorize.gak = Held()
+    try:
+        yield held
+    finally:
+        tensorize.gak = real
+
+
+def keyed_sums(residual) -> bool:
+    """A stage program of the residual lowers a keyed aggregate with a
+    sum, mean or count (one that it takes from ``grouped_agg``). A join's
+    build side and the other host-resident inputs of a stage are the
+    interpreter's, so their aggregates do not count (Q17's by partkey)."""
+    from repro_torch.compiler import ir, tensorize
+    art = tensorize._artifact(residual)
+    seen, stack = set(), [r for st in art.stages for r in st.jit_roots]
+    while stack:
+        n = stack.pop()
+        if id(n) in seen or id(n) in art.leaf_names:
+            continue
+        seen.add(id(n))
+        if isinstance(n, ir.Aggregate) and n.keys and any(
+                fn in ("sum", "mean", "count") for _, fn, _ in n.aggs):
+            return True
+        stack.extend(n.inputs())
+    return False
+
+
 def host_counts(on_card):
     """(device allocations of the caching allocator so far, full
     collections of Python's cyclic GC so far): what a run can stall on
@@ -753,9 +826,10 @@ def host_counts(on_card):
     return allocs, gc.get_stats()[2]["collections"]
 
 
-def engine_phase(cat, sync):
+def engine_phase(cat, sync, results=None):
     """Every query in every config through ``compile_and_run``; returns the
-    kernels' launch counts over exactly these runs."""
+    kernels' launch counts over exactly these runs. ``results``, when
+    given, gets each run's result under ``(qid, mode, power)``."""
     from repro_torch import kernels
     from repro_torch.compiler import QUERY_IDS
     from repro_torch.core.cost import StorageResources
@@ -810,6 +884,8 @@ def engine_phase(cat, sync):
                   f"result_rows={len(run.result)} peak={peak} "
                   f"device_allocs={allocs} gc_full_collections={gcs}")
             check(len(run.result) > 0, f"{qid} {mode}: empty result")
+            if results is not None:
+                results[(qid, mode, power)] = run.result
             for c, v in run.result.cols.items():
                 if v.is_floating_point():
                     check(bool(torch.isfinite(v).all()),
@@ -835,6 +911,152 @@ def engine_phase(cat, sync):
     print(f"engine: peak over the timed runs "
           f"{f'{max(peaks):.2f} GB' if on_card else 'not measured'}")
     return kernels.launches()
+
+
+# ------------------------------------------------------------ tensor phase
+def tensor_phase(cat, sync, interp, card: str = "no card", repeats: int = 5):
+    """The residual's tensor backend (``EngineConfig.residual="tensor"``).
+    Each query is compiled once (``compile_and_run`` would compile, and so
+    observe, at every call): one observe pass through ``run_query``, then
+    on the eager merged tables the interpreter's and the tensor backend's
+    residual times (medians of ``repeats``, ``gc.collect()`` and a sync
+    around each; the first, untimed tensor run is the cold one), its
+    stages, lowerings and ``grouped_agg`` launches and regimes, with each
+    of the cold run's stage calls of ``grouped_agg`` held to the plain
+    version (``tensor_agg_held``); then the
+    four configs warm, each ``fell_back`` False, ``observed`` False, no
+    program missed, and agreeing with the engine phase's interpreter run
+    of the config (``interp``: ``(qid, mode, power)`` -> result) bitwise
+    or in rows. Then the calibrated crossover and one ``residual="auto"``
+    run of Q1 and of Q18, and the stream phase's 16-entry stream in
+    adaptive 1.0 with the tensor backend, each result agreeing with the
+    engine phase's adaptive 1.0 run; ``residual.errors`` must stay 0.
+    ``card`` labels the lines. Returns the launch counts of the driven
+    runs."""
+    from repro_torch import kernels
+    from repro_torch.compiler import QUERY_IDS, compile_query, tensorize
+    from repro_torch.core.arbitrator import PUSHDOWN
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, plan_requests, run_query
+    from repro_torch.core.runtime import (execute_split, run_residual,
+                                          run_stream)
+    from repro_torch.obs import metrics
+
+    drive, launches, _ = launch_counting(sync)
+    on_card = cat.device.type == "cuda"
+
+    def config(mode="adaptive", power=1.0, residual="tensor"):
+        return EngineConfig(res=StorageResources(storage_power=power),
+                            mode=mode, device=cat.device, residual=residual)
+
+    def median_s(fn):
+        times = []
+        for _ in range(repeats):
+            gc.collect()
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    def agrees(got, want, label: str) -> str:
+        how = agree(want, got)
+        check(bool(how), f"tensor: {label} disagrees with the interpreter")
+        return how
+
+    def tally(hows: dict, how: str) -> None:
+        hows[how] = hows.get(how, 0) + 1
+    prev = metrics.get_metrics()
+    metrics.set_metrics(metrics.Metrics())
+    try:
+        hows, kinds = {}, set()
+        for qid in QUERY_IDS:
+            q = compile_query(qid)
+            run = drive(run_query, q, cat, config("eager"))
+            check(run.residual_backend == "tensor"
+                  and run.residual_jit["observed"],
+                  f"tensor: {qid} observe pass {run.residual_jit}")
+            agrees(run.result, interp[(qid, "eager", 1.0)], f"{qid} observe")
+            reqs = plan_requests(q, cat)
+            merged = execute_split(
+                reqs, {r.req_id: PUSHDOWN for r in reqs}).merged
+            rows = sum(len(t) for t in merged.values())
+            kernels.reset_launches()
+            with grouped_agg_regimes([]) as seen, \
+                    tensor_agg_held([]) as held:
+                _, cold = run_residual(q, merged, "tensor")
+                sync()
+            n_ga = kernels.launches()["grouped_agg"]
+            check(not cold.fell_back, f"tensor: {qid} cold run fell back")
+            if keyed_sums(q.residual):
+                # the stages themselves called the kernel (the interpreter
+                # launches it too, so the launch count alone shows nothing)
+                check(len(held) > 0 and (n_ga >= len(held) or not on_card),
+                      f"tensor: {qid}'s stages called grouped_agg "
+                      f"{len(held)} times, {n_ga} launches in the cold run")
+            t_int = median_s(lambda: run_residual(q, merged, "interpreter"))
+            t_ten = median_s(lambda: run_residual(q, merged, "tensor"))
+            del merged
+            aggs, joins = tensorize.lowerings(q.residual)
+            if held:
+                kinds.update(a[0] for a in aggs)
+            print(f"tensor: {qid} merged_rows={rows} stages={cold.n_stages} "
+                  f"cold_misses={cold.jit_misses} aggregates="
+                  f"{[a[0] for a in aggs]} joins={[j[0] for j in joins]} "
+                  f"grouped_agg launches={n_ga} regimes="
+                  f"{', '.join(dict.fromkeys(seen)) or 'none'} "
+                  f"held to the plain version (R, G, dropped, max_abs_err)="
+                  f"{held} "
+                  f"interpreter_ms={1e3 * t_int:.4f} "
+                  f"tensor_ms={1e3 * t_ten:.4f} (medians of {repeats}) "
+                  f"[{card}]")
+            for mode, power in CONFIGS:
+                run = drive(run_query, q, cat, config(mode, power))
+                jit = run.residual_jit
+                check(run.residual_backend == "tensor" and jit is not None
+                      and not jit["fell_back"] and not jit["observed"]
+                      and jit["misses"] == 0 and jit["hits"] >= 1,
+                      f"tensor: {qid} {mode} {power} {jit}")
+                tally(hows, agrees(run.result, interp[(qid, mode, power)],
+                                   f"{qid} {mode} {power}"))
+        check(kinds >= {"code", "lex"},
+              f"tensor: grouped_agg held to its plain version under the "
+              f"{sorted(kinds)} aggregates only, not both code and lex")
+        print(f"tensor: {len(QUERY_IDS)} queries x {len(CONFIGS)} configs "
+              f"warm (no program missed), agree with the interpreter "
+              f"{hows} [{card}]")
+        t0 = time.perf_counter()
+        th = tensorize.calibrate_residual_threshold(device=cat.device)
+        print(f"tensor: calibrate_residual_threshold() = {th} merged rows "
+              f"in {time.perf_counter() - t0:.2f} s (inf: the tensor "
+              f"backend won at no size) [{card}]")
+        for qid in ("Q1", "Q18"):
+            run = drive(run_query, compile_query(qid), cat,
+                        config(residual="auto"))
+            agrees(run.result, interp[(qid, "adaptive", 1.0)], f"{qid} auto")
+            print(f"tensor: {qid} residual=auto (threshold "
+                  f"{tensorize.auto_threshold(cat.device)}) ran "
+                  f"{run.residual_backend} {run.residual_jit}")
+        run = drive(run_stream, stream_queries(STREAM_GAP_S), cat, config())
+        check(set(run.results) == {*QUERY_IDS, "Q6#1"},
+              f"tensor stream: keys {sorted(run.results)}")
+        shows = {}
+        for key, res in run.results.items():
+            tally(shows, agrees(res, interp[(key.split("#")[0], "adaptive",
+                                             1.0)], f"stream {key}"))
+        counters = metrics.get_metrics().snapshot()["counters"]
+        res_c = {k: int(v) for k, v in sorted(counters.items())
+                 if k.startswith("residual.")}
+        print(f"tensor: stream of {len(run.results)} adaptive 1.0 "
+              f"residual=tensor: t_decide_s={run.t_decide:.4f} "
+              f"wall_clock_s={run.wall_clock:.4f} agree={shows}; "
+              f"{res_c} [{card}]")
+        check(res_c.get("residual.errors", 0) == 0,
+              f"tensor: residual.errors in {res_c}")
+    finally:
+        metrics.set_metrics(prev)
+    return launches
 
 
 # ---------------------------------------------------------- compiler phase
@@ -2317,8 +2539,16 @@ def main() -> int:
     print_records([*records.values(), *extra], list(records))
 
     t0 = time.perf_counter()
-    engine = engine_phase(cat, torch.cuda.synchronize)
+    interp = {}
+    engine = engine_phase(cat, torch.cuda.synchronize, interp)
     print(f"engine phase: {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tensor = tensor_phase(cat, torch.cuda.synchronize, interp, smi[0])
+    del interp
+    print(f"tensor phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2365,16 +2595,20 @@ def main() -> int:
     t0 = time.perf_counter()
     tiered = tier_phase(cat, torch.cuda.synchronize, smi[0])
     print(f"tier phase: {time.perf_counter() - t0:.2f} s")
-    launches = {n: engine[n] + costed[n] + comp[n] + sec42[n] + cached[n]
-                + faulted[n] + streamed[n] + traced[n] + tiered[n]
-                for n in records}
+    launches = {n: engine[n] + tensor[n] + costed[n] + comp[n] + sec42[n]
+                + cached[n] + faulted[n] + streamed[n] + traced[n]
+                + tiered[n] for n in records}
     print("kernels: " + "; ".join(
-        f"{n} check=ok launches={launches[n]} (engine {engine[n]}, costed "
-        f"{costed[n]}, compiler {comp[n]}, section 4.2 {sec42[n]}, cache "
-        f"{cached[n]}, faults {faulted[n]}, stream {streamed[n]}, trace "
-        f"{traced[n]}, tier {tiered[n]})" for n in records))
+        f"{n} check=ok launches={launches[n]} (engine {engine[n]}, tensor "
+        f"{tensor[n]}, costed {costed[n]}, compiler {comp[n]}, section 4.2 "
+        f"{sec42[n]}, cache {cached[n]}, faults {faulted[n]}, stream "
+        f"{streamed[n]}, trace {traced[n]}, tier {tiered[n]})"
+        for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
+    # each query's stages calling grouped_agg is checked in tensor_phase
+    check(tensor["grouped_agg"] > 0,
+          "grouped_agg never launched in the tensor phase's driven runs")
     for n in ("predicate_bitmap", "fused_scan_agg", "grouped_agg"):
         check(tiered[n] > 0, f"{n} never launched on the process tier")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,7 @@
 
     python3 profile_kernels.py {grouped_agg,predicate_bitmap,fused_scan_agg,
                                 bitmap_apply,fused_scan_shuffle,engine,
-                                cache} [--seed 0] [--repeats 5]
+                                cache,residual} [--seed 0] [--repeats 5]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 ``repro_torch`` comes from ``PYTHONPATH`` when it is found there, else from
@@ -58,12 +58,20 @@ Prints the card's name and power limit.
   ratio of the medians and one run's device time (``torch.profiler``, the
   sum over kernels); for Q1, Q3 and Q14 the host functions with the most
   self time in one uncached and one warm run (``cProfile``).
+- ``residual``: on the same catalog, every compiled query's residual over
+  its eager merged tables through the interpreter and through the tensor
+  backend (``compiler.tensorize``, observed and run cold first), each
+  ``--repeats`` times with ``gc.collect()`` before each: the medians, one
+  run's device time (``torch.profiler``, the sum over kernels) and, for
+  the tensor backend, the device operations with the most time and the
+  host functions with the most self time (``cProfile``) in one run.
 """
 from __future__ import annotations
 
 import argparse
 import cProfile
 import dataclasses
+import functools
 import gc
 import os
 import pstats
@@ -89,6 +97,20 @@ def profile(fn) -> str:
     rows = [e for e in prof.key_averages() if e.device_time_total > 0]
     return "; ".join(f"{e.key[:40]} {e.device_time_total / 1e3:.4f} ms"
                      for e in rows)
+
+
+# the kernels of csrc/grouped_agg.cu (every regime)
+GROUPED_AGG_KERNELS = ("agg_smem_kernel", "range_hist_kernel",
+                       "range_scan_kernel", "range_scatter_kernel",
+                       "range_agg_kernel")
+
+
+def device_ms_of(prof) -> float:
+    """Device milliseconds in a profile: the sum over the device's own
+    events (kernels, copies). An operator's row carries its kernels' time
+    too, so a sum over every row counts most of it twice."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def grouped_agg_shapes(dev, gen):
@@ -442,8 +464,7 @@ def time_cache(dev, seed, repeats):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total
-                   for e in prof.key_averages()) / 1e3
+        return device_ms_of(prof)
 
     def host_top(fn, n=8):
         pr = cProfile.Profile()
@@ -478,15 +499,92 @@ def time_cache(dev, seed, repeats):
         cache.clear()
 
 
+def time_residual(dev, seed, repeats):
+    from repro_torch.compiler import QUERY_IDS, compile_query
+    from repro_torch.core.arbitrator import PUSHDOWN
+    from repro_torch.core.engine import plan_requests
+    from repro_torch.core.runtime import execute_split, run_residual
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    cat = lineitem_catalog(dev, seed)
+
+    def median_s(fn):
+        ts = []
+        for _ in range(repeats):
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    def device(fn, n=6):
+        """(device ms of one call, its n operators with the most device
+        time)."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type != torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+        top = "; ".join(f"{e.key[:48]} x{e.count} "
+                        f"{e.self_device_time_total / 1e3:.3f} ms"
+                        for e in ops[:n])
+        ga = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(k in e.key for k in GROUPED_AGG_KERNELS)) / 1e3
+        return device_ms_of(prof), f"{top}; grouped_agg kernels {ga:.3f} ms"
+
+    def host_top(fn, n=6):
+        pr = cProfile.Profile()
+        pr.enable()
+        fn()
+        torch.cuda.synchronize()
+        pr.disable()
+        rows = sorted(pstats.Stats(pr).stats.items(),
+                      key=lambda kv: -kv[1][2])[:n]
+        return "; ".join(f"{os.path.basename(f)}:{name} {tt * 1e3:.2f} ms"
+                         for (f, _l, name), (_c, _n, tt, _ct, _cl) in rows)
+
+    for qid in QUERY_IDS:
+        q = compile_query(qid)
+        reqs = plan_requests(q, cat)
+        merged = execute_split(reqs, {r.req_id: PUSHDOWN for r in reqs}).merged
+        interp = functools.partial(run_residual, q, merged, "interpreter")
+        tensor = functools.partial(run_residual, q, merged, "tensor")
+        interp()
+        tensor()                                     # observes
+        _, cold = tensor()
+        ti, tt = median_s(interp), median_s(tensor)
+        di, _ = device(interp)
+        dt, top = device(tensor)
+        print(f"residual {qid}: merged_rows="
+              f"{sum(len(t) for t in merged.values())} interpreter "
+              f"median_ms={1e3 * ti:.4f} device_ms={di:.4f}; tensor "
+              f"median_ms={1e3 * tt:.4f} device_ms={dt:.4f} "
+              f"(fell_back={cold.fell_back}); tensor/interpreter="
+              f"{tt / ti:.3f}")
+        print(f"residual {qid} tensor device top: {top}")
+        print(f"residual {qid} tensor host top by self time: "
+              f"{host_top(tensor)}")
+        del merged
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap",
                                        "fused_scan_agg", "bitmap_apply",
                                        "fused_scan_shuffle", "engine",
-                                       "cache"))
+                                       "cache", "residual"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=5,
-                    help="timed runs a configuration (engine, cache)")
+                    help="timed runs a configuration (engine, cache, "
+                    "residual)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -510,6 +608,8 @@ def main() -> int:
         time_engine(dev, args.seed, args.repeats)
     elif args.kernel == "cache":
         time_cache(dev, args.seed, args.repeats)
+    elif args.kernel == "residual":
+        time_residual(dev, args.seed, args.repeats)
     else:
         time_grouped_agg(dev, torch.Generator(device=dev).manual_seed(
             args.seed), torch.cuda.get_device_properties(dev)

@@ -16,9 +16,11 @@ Port of ``repro.compiler`` (host-only):
 - ``compile.py``     ``compile_query(qid)`` -> engine-ready ``Query``;
                      ``compile_query_costed`` picks each table's cut by
                      the cost model
+- ``tensorize.py``   the residual as padded stage programs over device
+                     tensors (``EngineConfig.residual="tensor"``)
 """
 from repro_torch.compiler import (analyzer, interpreter, ir,  # noqa: F401
-                                  multitable, splitter)
+                                  multitable, splitter, tensorize)
 from repro_torch.compiler.compile import (CompiledQuery,  # noqa: F401
                                           CutChoice, QUERY_IDS, compile_ir,
                                           compile_query,

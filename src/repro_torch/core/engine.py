@@ -24,7 +24,10 @@ an arrival-timed stream of queries on worker pools. With
 the queue depths a running stream publishes, and its fluid queue where
 none was published. With ``storage_tier="process"`` (or a
 ``worker_pool``) the storage side runs in one worker process per catalog
-node (``distributed.workers``), with the same results.
+node (``distributed.workers``), with the same results. With
+``residual="tensor"`` (or ``"auto"`` above a calibrated row count) the
+residual runs as padded stage programs (``compiler.tensorize``), with
+the same results.
 
 Modes: no_pushdown / eager / adaptive / adaptive_pa (§6.2 baselines).
 """
@@ -123,6 +126,12 @@ class EngineConfig:
     # names the pool and wins over the tier
     storage_tier: str = STORAGE_INPROC
     worker_pool: Optional[object] = None
+    # runtime.RESIDUALS: "interpreter" walks the residual IR; "tensor"
+    # runs it as padded stage programs (compiler.tensorize, programs
+    # cached per shape bucket); "auto" takes tensor at or above the
+    # calibrated row crossover. The results are the same under every
+    # backend
+    residual: str = runtime.RESIDUAL_INTERPRETER
 
 
 @dataclasses.dataclass
@@ -153,6 +162,11 @@ class QueryRun:
     outcomes: Optional[List[runtime.RequestOutcome]] = None
     # n_demoted, retries, faults_injected; None on a run no fault touched
     recovery: Optional[Dict] = None
+    # the backend that evaluated the residual ("interpreter" | "tensor")
+    # and, on the tensor path, its program-cache hits/misses, fallback,
+    # observe and stage counts (None when the interpreter ran)
+    residual_backend: str = "interpreter"
+    residual_jit: Optional[Dict] = None
 
     @property
     def t_total(self) -> float:
@@ -252,8 +266,19 @@ def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
                            f"arbitrated {admitted}")
     if cfg.corrector is not None:
         runtime.feed_corrector(cfg.corrector, query.qid, reqs, split.outcomes)
-    with tr.span("residual_compute", qid=query.qid, backend="interpreter"):
-        result = runtime.run_residual(query, split.merged)
+    with tr.span("residual_compute", qid=query.qid,
+                 backend=cfg.residual) as rsp:
+        result, trun = runtime.run_residual(query, split.merged,
+                                            cfg.residual)
+        if tr.enabled and trun is not None:
+            tr.amend(rsp, backend="tensor", jit_hits=trun.jit_hits,
+                     jit_misses=trun.jit_misses, fell_back=trun.fell_back)
+    residual_jit = None
+    if trun is not None:
+        residual_jit = {"hits": trun.jit_hits, "misses": trun.jit_misses,
+                        "fell_back": trun.fell_back,
+                        "observed": trun.observed,
+                        "n_stages": trun.n_stages}
     m = get_metrics()
     m.counter("engine.queries").inc()
     m.counter("engine.requests.pushdown").inc(split.n_pushdown)
@@ -275,7 +300,9 @@ def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
         n_pushed_back=sim.pushed_back_by_query.get(query.qid, 0),
         real_net_bytes=split.real_net_bytes,
         net_bytes_recon=runtime.reconcile_net_bytes(sim, reqs, split),
-        outcomes=split.outcomes, recovery=recovery)
+        outcomes=split.outcomes, recovery=recovery,
+        residual_backend=("tensor" if trun is not None else "interpreter"),
+        residual_jit=residual_jit)
 
 
 def _set_query_attrs(qs, run: QueryRun) -> None:

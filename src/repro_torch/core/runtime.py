@@ -61,12 +61,41 @@ from repro_torch.obs.metrics import get_metrics
 from repro_torch.queryproc.table import ColumnTable
 
 
-def run_residual(query, merged: Dict[str, ColumnTable]) -> ColumnTable:
-    """The query's residual over the merged per-table results: the
-    interpreter branch of the reference's ``run_residual``. A compiled
-    query's ``compute`` interprets its ``residual`` IR
-    (``compiler.interpreter``); a hand-built one runs its own closure."""
-    return query.compute(merged)
+# residual backends (EngineConfig.residual): how the compute layer
+# evaluates the residual plan over the merged tables.
+#   interpreter — the tree-walker (compiler.interpreter), the oracle
+#   tensor      — padded stage programs (compiler.tensorize), the same
+#                 results
+#   auto        — tensor iff the merged input has at least the calibrated
+#                 crossover's rows (tensorize.auto_threshold)
+RESIDUAL_INTERPRETER = "interpreter"
+RESIDUAL_TENSOR = "tensor"
+RESIDUAL_AUTO = "auto"
+RESIDUALS = (RESIDUAL_INTERPRETER, RESIDUAL_TENSOR, RESIDUAL_AUTO)
+
+
+def run_residual(query, merged: Dict[str, ColumnTable],
+                 backend: str = RESIDUAL_INTERPRETER):
+    """Evaluate ``query``'s residual over the merged per-table results.
+
+    Returns ``(table, info)``: ``info`` is None on the interpreter path
+    and a ``tensorize.TensorRun`` (program-cache hits and misses, fallback
+    and observe accounting) on the tensor path. A query with no residual
+    IR (the hand-built ones) runs its ``compute`` closure under every
+    backend: the tensor backend needs the IR."""
+    if backend is not None and backend not in RESIDUALS:
+        raise ValueError(f"unknown residual backend {backend!r}; "
+                         f"expected one of {RESIDUALS}")
+    residual = getattr(query, "residual", None)
+    if residual is None or backend in (None, RESIDUAL_INTERPRETER):
+        return query.compute(merged), None
+    from repro_torch.compiler import tensorize  # deferred: a cycle
+    if backend == RESIDUAL_AUTO:
+        rows = sum(len(t) for t in merged.values())
+        if rows < tensorize.auto_threshold(tensorize.device_of(merged)):
+            return query.compute(merged), None
+    run = tensorize.execute(residual, merged)
+    return run.table, run
 
 
 @dataclasses.dataclass
@@ -855,9 +884,12 @@ def _run_stream_body(stream, catalog, cfg, time_scale, tr, stream_span,
                 merged = {t: ColumnTable.concat(p)
                           for t, p in by_table.items()}
             with tr.span("residual_compute", parent=qspan) as rsp:
-                res = run_residual(sq.query, merged)
-                tr.amend(rsp, backend="interpreter", jit_hits=None,
-                         jit_misses=None)
+                res, trun = run_residual(sq.query, merged, cfg.residual)
+                if tr.enabled:
+                    tr.amend(rsp, backend=("tensor" if trun is not None
+                                           else "interpreter"),
+                             jit_hits=(trun.jit_hits if trun else None),
+                             jit_misses=(trun.jit_misses if trun else None))
                 return res
 
         result = on_core(merge_and_compute)

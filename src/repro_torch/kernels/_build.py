@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from repro_torch.kernels._launch import KernelError
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("predicate_bitmap", "fused_scan_agg", "grouped_agg", "bitmap_apply",
@@ -59,8 +61,8 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
-                       "machine with the GPU")
+    raise KernelError("nvcc not found: the CUDA kernels are built on the "
+                      "machine with the GPU")
 
 
 def _lib_path(name: str) -> Path:
@@ -102,7 +104,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             else:
                 os.replace(tmps[n], todo[n])
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelError("\n".join(failed))
         for n, p in todo.items():
             _LIBS[n] = _load(n, p)
         return dict(_LIBS)

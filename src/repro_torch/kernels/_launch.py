@@ -80,9 +80,15 @@ def launch_config(device: torch.device) -> Tuple[int, int]:
     return sm_count(device) * BLOCKS_PER_SM, stream_of(device)
 
 
+class KernelError(RuntimeError):
+    """A kernel library failed to build, or a launch returned a CUDA
+    error. Callers that replay a plain path on their own failures (the
+    residual's tensor backend) let this one propagate."""
+
+
 def raise_on(err: int, kernel: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+        raise KernelError(f"{kernel} launch failed: CUDA error {err}")
 
 
 def reject_device(device: torch.device) -> None:

@@ -1050,3 +1050,84 @@ def test_a_worker_that_cannot_use_cuda_fails_the_pool(cuda, catalogs):
             del os.environ["CUDA_VISIBLE_DEVICES"]
         else:
             os.environ["CUDA_VISIBLE_DEVICES"] = old
+
+
+# ------------------------------------------------ the residual's tensor backend
+@pytest.mark.parametrize("qid", queries.QUERY_IDS)
+def test_tensor_residual_on_the_card_matches_the_interpreter(cuda, catalogs,
+                                                             qid):
+    """Compiled once, observed, then cold and warm: the tensor backend's
+    result on the card is the interpreter's there and the tensor
+    backend's on the CPU, with no fallback and no warm miss."""
+    gpu, cpu = catalogs
+    q = queries.build_query(qid)
+    cfg = EngineConfig(mode="eager", device=cuda)
+    want = run_query(q, gpu, cfg).result
+    tcfg = dataclasses.replace(cfg, residual="tensor")
+    runs = [run_query(q, gpu, tcfg) for _ in range(3)]
+    assert runs[0].residual_jit["observed"]
+    for run in runs[1:]:
+        assert run.residual_backend == "tensor"
+        assert not run.residual_jit["fell_back"]
+        assert list(run.result.cols) == list(want.cols)
+        assert results_equal(want, run.result), qid
+    assert runs[2].residual_jit["misses"] == 0
+    qc = queries.build_query(qid)
+    ccfg = EngineConfig(mode="eager", device="cpu", residual="tensor")
+    c = [run_query(qc, cpu, ccfg) for _ in range(2)][-1]
+    assert results_equal(c.result, runs[2].result), qid
+
+
+def test_grouped_agg_launches_inside_a_warm_tensor_stage(cuda, catalogs):
+    from repro_torch.compiler import ir, tensorize
+    from repro_torch.core.arbitrator import PUSHDOWN
+    from repro_torch.core.engine import plan_requests
+    from repro_torch.core.runtime import execute_split
+    gpu, _ = catalogs
+    q = queries.build_query("Q1")
+    reqs = plan_requests(q, gpu)
+    merged = execute_split(reqs, {r.req_id: PUSHDOWN for r in reqs}).merged
+    for _ in range(2):                     # observe, cold
+        tensorize.execute(q.residual, merged)
+    kernels.reset_launches()
+    run = tensorize.execute(q.residual, merged)
+    torch.cuda.synchronize()
+    assert (run.jit_hits, run.jit_misses, run.fell_back) == (1, 0, False)
+    # one launch a sum of the keyed merge: Q1's four and its partial counts
+    (agg,) = [n for n in ir.walk(q.residual) if isinstance(n, ir.Aggregate)]
+    assert kernels.launches()["grouped_agg"] == \
+        sum(fn == "sum" for _, fn, _ in agg.aggs) == 5
+    assert results_equal(run.table, q.compute(merged))
+
+
+@pytest.mark.parametrize("R", (300_000, 2_000_000))
+def test_lex_aggregate_at_one_group_a_row_matches_plain(cuda, R):
+    """Keys over a domain past ``_AGG_DOM_CAP`` take the lexsort path, whose
+    sums and counts run ``grouped_agg`` with G = the padded row count (the
+    ``l2`` regime at 2^19 rows, ``range`` at 2^21): keys and counts
+    bitwise, sums at rtol=1e-9 against the same stage on the CPU, whose
+    ``grouped_agg`` is ``kernels.ref``'s."""
+    from repro_torch.compiler import ir, tensorize
+    from repro_torch.queryproc.table import ColumnTable
+    rng = np.random.default_rng(R)
+    cols = {"k": rng.integers(0, 1 << 40, R // 3)[rng.integers(0, R // 3, R)],
+            "v": rng.uniform(0.0, 100.0, R)}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        res = ir.Aggregate(ir.Merged("t"), ("k",),
+                           (("s", "sum", "v"), ("c", "count", ""),
+                            ("m", "max", "v")))
+        merged = {"t": ColumnTable.from_numpy(cols, dev)}
+        for _ in range(2):                 # observe, then the program
+            run = tensorize.execute(res, merged)
+        assert not run.fell_back and run.jit_misses == 1
+        assert tensorize.lowerings(res) == ([("lex",)], [])
+        out[dev.type] = {c: v.cpu() for c, v in run.table.cols.items()}
+    n = 1 << (R - 1).bit_length()
+    assert ga.plan(n, n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count).regime == ("l2" if R < 1 << 19
+                                                 else "range")
+    g, c = out["cuda"], out["cpu"]
+    for k in ("k", "c", "m"):
+        assert torch.equal(g[k], c[k]), k
+    assert torch.allclose(g["s"], c["s"], rtol=SUM_RTOL, atol=0)

@@ -44,7 +44,7 @@ def test_the_rules_cover_the_cost_based_modules():
             "obs/trace.py", "core/result_cache.py",
             "core/faults.py", "obs/export.py", "core/arbitrator.py",
             "core/executor.py", "distributed/__init__.py",
-            "distributed/workers.py"} <= names
+            "distributed/workers.py", "compiler/tensorize.py"} <= names
 
 
 def _start_methods(path: Path):
