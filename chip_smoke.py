@@ -28,7 +28,10 @@ GPU is present. Phases:
    a sorted list on the card that each row binary-searches) runs through
    ``predicate_bitmap``, ``fused_scan_agg`` and ``fused_scan_shuffle``,
    and a nine-column AND (two programs) through the executor's split
-   route.
+   route. ``fused_scan_shuffle`` runs Q3's and Q19's predicates, Q19's
+   also with int64 keys and on one partition's view from its row 1, and
+   prints each launch's blocks, stages, shared bytes and whether its
+   pooled lists were staged in shared memory.
 3. Engine: builds the TPC-H catalog at ``SF`` = 1000 (TPC-H SF10's row
    counts: 60M lineitem rows in 100 partitions over 4 storage nodes)
    on the card and runs all 15 queries through
@@ -516,27 +519,62 @@ def kernel_phase(cat, timer):
 
     # fused_scan_shuffle: Q3's and Q19's lineitem predicates, key
     # l_orderkey, 4 targets; timed on Q19's (the longer program)
-    err = 0.0
     for q in ("Q3", "Q19"):
         prog = program_for(li_plans[q].predicate, li)
         cols = [li[c] for c in prog.columns]
-        out = fss.fused_scan_shuffle(prog, cols, keys, P)
-        plain = ref.fused_scan_shuffle(prog, cols, keys, P)
-        check(all(torch.equal(a, b) for a, b in zip(out, plain)),
-              f"fused_scan_shuffle {q}: words, pids or histogram differ")
-        err = max([err] + [max_diff(a, b) for a, b in zip(out, plain)])
+        out = held_shuffle(prog, cols, keys, P, q)
     b_ms, b_by = bound(nbytes(*cols, keys, *out), R * (prog.n_ops + 3))
     records["fused_scan_shuffle"] = dict(
-        max_abs_err=err, ms=timer(lambda: fss.fused_scan_shuffle(prog, cols,
+        max_abs_err=0.0, ms=timer(lambda: fss.fused_scan_shuffle(prog, cols,
                                                                  keys, P)),
         plain_ms=timer(lambda: ref.fused_scan_shuffle(prog, cols, keys, P)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"Q19 lineitem predicate, key l_orderkey, R={R}, P={P}, "
               f"kept={int(out[2].sum())}")
-    del out, plain
+    # the same with the keys as int64 (high bits set: only the low 32 hash,
+    # so the pids are the int32 keys'), and on one partition's view from
+    # its row 1 (every column and the keys off a 16-byte boundary)
+    keys64 = keys.to(torch.int64) | (1 << 40)
+    part = cat.partitions_of("lineitem")[0].data.cols
+    vcols = [part[c][1:] for c in prog.columns]
+    vkeys = part["l_orderkey"][1:]
+    check(all(c.data_ptr() % 16 for c in (*vcols, vkeys)),
+          "partition view: a column starts on a 16-byte boundary")
+    for case, pc, k in (("int64 keys", cols, keys64),
+                        ("one partition from row 1", vcols, vkeys)):
+        got = held_shuffle(prog, pc, k, P, f"Q19, {case}")
+        check(k is not keys64 or torch.equal(got[1], out[1]),
+              "fused_scan_shuffle Q19: int64 keys hash to other targets")
+        b_ms, b_by = bound(nbytes(*pc, k, *got), k.shape[0] * (prog.n_ops + 3))
+        lines.append(dict(
+            name="fused_scan_shuffle", max_abs_err=0.0,
+            ms=timer(lambda: fss.fused_scan_shuffle(prog, pc, k, P)),
+            plain_ms=timer(lambda: ref.fused_scan_shuffle(prog, pc, k, P)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"Q19 lineitem predicate, {case}, R={k.shape[0]}, P={P}"))
+    del out, got, keys64
     lines += pooled_in_records(li, seg, n_parts, timer)
     split_route_check(cat)
     return records, lines
+
+
+def held_shuffle(prog, cols, keys, P, case):
+    """``fused_scan_shuffle`` held bitwise to its plain version; prints the
+    launch's grid, ring and shared memory (``last_launch``)."""
+    from repro_torch.kernels import fused_scan_shuffle as fss
+    from repro_torch.kernels import ref
+
+    out = fss.fused_scan_shuffle(prog, cols, keys, P)
+    plain = ref.fused_scan_shuffle(prog, cols, keys, P)
+    check(all(a.dtype == b.dtype and torch.equal(a, b)
+              for a, b in zip(out, plain)),
+          f"fused_scan_shuffle {case}: words, pids or histogram differ")
+    launch = fss.fused_scan_shuffle.last_launch if keys.is_cuda else None
+    print(f"kernel: fused_scan_shuffle launch [{case}, {keys.dtype}, "
+          f"R={keys.shape[0]}]: " + (", ".join(
+              f"{k}={v}" for k, v in launch.items()) if launch else
+              "the plain version (CPU)"))
+    return out
 
 
 def pooled_in_records(li, seg, n_parts, timer):
@@ -591,14 +629,10 @@ def pooled_in_records(li, seg, n_parts, timer):
         shape=f"{shape}, sum of l_extendedprice by partition, G={n_parts}, "
               f"kept={kept}"))
     keys, P = li["l_orderkey"], SHUFFLE_TARGETS
-    got = fss.fused_scan_shuffle(prog, [col], keys, P)
-    plain = ref.fused_scan_shuffle(prog, [col], keys, P)
-    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
-          "fused_scan_shuffle pooled In: words, pids or histogram differ")
+    got = held_shuffle(prog, [col], keys, P, "512-value pooled In")
     b_ms, b_by = bound(nbytes(col, keys, *got), R * (steps + 3))
     out.append(dict(
-        name="fused_scan_shuffle", max_abs_err=max(
-            max_diff(a, b) for a, b in zip(got, plain)),
+        name="fused_scan_shuffle", max_abs_err=0.0,
         ms=timer(lambda: fss.fused_scan_shuffle(prog, [col], keys, P)),
         plain_ms=timer(lambda: ref.fused_scan_shuffle(prog, [col], keys, P)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,

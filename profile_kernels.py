@@ -37,9 +37,12 @@ Prints the card's name and power limit.
   Q19's three cached columns): its device time, its launches, and the host
   time of the call alone and until the card is done.
 - ``fused_scan_shuffle``: on the same catalog, Q19's and Q3's lineitem
-  predicates with key ``l_orderkey`` into 4 targets, and, where the
-  checkout pools long ``In`` lists, chip_smoke's 512-value ``In`` on
-  ``l_partkey``, each beside its bytes bound.
+  predicates with key ``l_orderkey`` into 4 targets, Q19's into 9 and
+  8192 targets (the shared counters), with the keys as int64 and on one
+  partition's view from its row 1, and, where the checkout pools long
+  ``In`` lists, chip_smoke's 512-value ``In`` on ``l_partkey``, each
+  beside its bytes bound and with the launch's grid, ring and shared
+  memory where the wrapper reports them.
 - ``engine``: on the same catalog, the wall time of Q1, Q3, Q6, Q12 and
   Q19 in chip_smoke's four configurations, each run once untimed and then
   ``--repeats`` times: first through the hand-built plans
@@ -340,28 +343,37 @@ def time_fused_scan_shuffle(dev, seed):
     from repro_torch.queryproc import queries
     from repro_torch.queryproc.expressions import Col
 
-    li = lineitem_catalog(dev, seed).scan_table(
-        "lineitem", ["l_quantity", "l_shipmode", "l_shipinstruct",
-                     "l_shipdate", "l_orderkey", "l_partkey"]).cols
+    cat = lineitem_catalog(dev, seed)
+    need = ["l_quantity", "l_shipmode", "l_shipinstruct", "l_shipdate",
+            "l_orderkey", "l_partkey"]
+    li = cat.scan_table("lineitem", need).cols
+    part = cat.partitions_of("lineitem")[0].data.cols
     keys = li["l_orderkey"]
-    cases = [(q, queries.build_query(q).plans["lineitem"].predicate)
+    q19 = queries.build_query("Q19").plans["lineitem"].predicate
+    cases = [(q, queries.build_query(q).plans["lineitem"].predicate, li, 4)
              for q in ("Q19", "Q3")]
+    cases += [("Q19 P=9", q19, li, 9), ("Q19 P=8192", q19, li, 8192),
+              ("Q19 int64 keys", q19, {**li, "l_orderkey": keys.to(
+                  torch.int64) | (1 << 40)}, 4),
+              ("Q19 one partition from row 1", q19,
+               {c: part[c][1:] for c in need}, 4)]
     if hasattr(program, "K_IN_POOL"):
         gen = torch.Generator().manual_seed(512)
         hi = int(li["l_partkey"].max()) + 1
         vals = torch.randperm(hi, generator=gen)[:POOLED_VALUES].tolist()
-        cases.append(("512-value pooled In", Col("l_partkey").isin(vals)))
-    for name, pred in cases:
-        prog = program.program_for(pred, li)
-        cols = [li[c] for c in prog.columns]
-        out = fss.fused_scan_shuffle(prog, cols, keys, 4)
+        cases.append(("512-value pooled In", Col("l_partkey").isin(vals),
+                      li, 4))
+    for name, pred, t, P in cases:
+        prog = program.program_for(pred, t)
+        cols, k = [t[c] for c in prog.columns], t["l_orderkey"]
+        out = fss.fused_scan_shuffle(prog, cols, k, P)
         check(all(torch.equal(a, b) for a, b in zip(
-            out, ref.fused_scan_shuffle(prog, cols, keys, 4))), name)
-        b_ms, _ = bound(nbytes(*cols, keys, *out),
-                        keys.shape[0] * (prog.n_ops + 3))
-        ms = cuda_ms(lambda: fss.fused_scan_shuffle(prog, cols, keys, 4))
-        print(f"fused_scan_shuffle {name} R={keys.shape[0]} {prog.n_ops} "
-              f"ops: ms={ms:.4f} bound_ms={b_ms:.4f}")
+            out, ref.fused_scan_shuffle(prog, cols, k, P))), name)
+        b_ms, _ = bound(nbytes(*cols, k, *out), k.shape[0] * (prog.n_ops + 3))
+        ms = cuda_ms(lambda: fss.fused_scan_shuffle(prog, cols, k, P))
+        launch = getattr(fss.fused_scan_shuffle, "last_launch", None)
+        print(f"fused_scan_shuffle {name} R={k.shape[0]} {prog.n_ops} "
+              f"ops: ms={ms:.4f} bound_ms={b_ms:.4f} launch={launch}")
 
 
 def time_engine(dev, seed, repeats):

@@ -46,8 +46,10 @@ SIGNATURES = {
         "bitmap_apply_chunk_rows": []},
     "shuffle": {
         "hash_partition_launch": [_P, _I, _LL, _I, _P, _P, _I, _P],
-        "fused_scan_shuffle_launch": _PROG + [_P, _I, _LL, _I, _P, _P, _P, _I,
-                                              _P]},
+        # host pool, keys, key dtype, R, P, words, pids, hist, sms, stream,
+        # info
+        "fused_scan_shuffle_launch": _PROG + [_P, _P, _I, _LL, _I, _P, _P, _P,
+                                              _I, _P, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

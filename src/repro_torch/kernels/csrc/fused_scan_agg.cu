@@ -11,7 +11,8 @@
 // What held the first design back: the engine launched it once per summed
 // column, so Q1's four sums evaluated the predicate and read the ids four
 // times (4 x 0.4885 ms against one pass's 0.7071 ms bound), and its
-// interpreter (program.cuh::eval_tile) is limited by instruction issue.
+// interpreter, which ran leaf after leaf on rows loaded from device memory,
+// is limited by instruction issue.
 //
 // Design: V (0 to MAX_VALUES) value columns per launch, and the staging of
 // predicate_bitmap.cu (staging.cuh): a persistent grid in which a producer

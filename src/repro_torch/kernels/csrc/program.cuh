@@ -8,25 +8,18 @@
 // at the same time, so the reads are uniform constant-bank loads and the
 // interpretation never diverges.
 //
-// A warp evaluates a tile of 32 * TILE_K consecutive rows: lane l holds
-// rows base + 32 * k + l for k < TILE_K. Each op is decoded once per tile
-// and applied to the lane's TILE_K rows, so the decode is paid once per
-// TILE_K rows and each leaf has TILE_K independent loads in flight. Each
-// row's boolean stack is one 32-bit register.
-//
 // An IN list longer than the inline constants take (K_IN_POOL) lives in a
 // device array the program holds by pointer: every pooled list of the
 // program, each sorted and deduplicated, one after the other, as int64
 // values or as the bits of f64 values (f32 comparisons: values already
 // rounded to f32). A leaf binary-searches its list with a fixed number of
-// steps, so the lanes never diverge; the pool is a few KB (512 int64
-// constants are 4 KB) and stays in L2 while the columns stream past.
+// steps, so the lanes never diverge. predicate_bitmap and fused_scan_agg
+// search it in device memory (GlobalPool); fused_scan_shuffle copies it
+// into each block's shared memory when it fits (shuffle.cu).
 //
-// eval_staged (after eval_tile) runs the same program over a tile that
-// predicate_bitmap.cu or fused_scan_agg.cu has staged in shared memory
-// (staging.cuh), with a cheaper stack; the mbarrier and bulk-copy helpers
-// at the end serve that staging. eval_tile now serves fused_scan_shuffle
-// alone.
+// eval_staged runs the program over a tile that a kernel has staged in
+// shared memory (staging.cuh); the mbarrier and bulk-copy helpers at the
+// end serve that staging.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,8 +40,10 @@ struct PredProgram {
   int4 ops[PP_MAX_OPS];          // (code, col, x, y)
   double fconst[PP_MAX_CONSTS];  // constants of f32/f64 comparisons
   long long iconst[PP_MAX_CONSTS];  // constants of int64 comparisons
-  const void* cols[PP_MAX_COLS];
-  int dtypes[PP_MAX_COLS];
+  // cols[n_cols] may hold one more column that the kernel stages beside
+  // the program's and no op reads (fused_scan_shuffle's keys)
+  const void* cols[PP_MAX_COLS + 1];
+  int dtypes[PP_MAX_COLS + 1];
   int n_ops;
   const long long* pool;  // the K_IN_POOL lists (device memory)
   int n_pool;
@@ -87,13 +82,6 @@ static inline int fill_program(PredProgram* p, const int* ops, int n_ops,
   return 0;
 }
 
-// Host side: does the program hold a pooled IN leaf?
-static inline bool has_pool(const PredProgram& P) {
-  for (int k = 0; k < P.n_ops; ++k)
-    if ((P.ops[k].x & 15) == K_IN_POOL) return true;
-  return false;
-}
-
 template <typename T>
 __device__ __forceinline__ T const_as(const PredProgram& P, int k);
 template <>
@@ -111,18 +99,6 @@ __device__ __forceinline__ double const_as<double>(const PredProgram& P,
   return P.fconst[k];
 }
 
-// Column c's value at row r, converted to the comparison type T.
-template <typename T>
-__device__ __forceinline__ T load_as(const PredProgram& P, int c, long long r) {
-  const void* p = P.cols[c];
-  switch (P.dtypes[c]) {
-    case DT_I32: return (T) static_cast<const int*>(p)[r];
-    case DT_I64: return (T) static_cast<const long long*>(p)[r];
-    case DT_F32: return (T) static_cast<const float*>(p)[r];
-    default: return (T) static_cast<const double*>(p)[r];
-  }
-}
-
 // Entry i of the pool in the comparison type T.
 template <typename T>
 __device__ __forceinline__ T pool_at(const long long* pool, int i);
@@ -133,7 +109,7 @@ __device__ __forceinline__ long long pool_at<long long>(const long long* pool,
 }
 template <>
 __device__ __forceinline__ int pool_at<int>(const long long* pool, int i) {
-  return (int)__ldg(pool + i);  // never reached: pooled leaves stay int64
+  return (int)__ldg(pool + i);  // a list narrowed to int32 values
 }
 template <>
 __device__ __forceinline__ double pool_at<double>(const long long* pool,
@@ -169,53 +145,16 @@ __device__ __forceinline__ unsigned pool_in(const long long* pool, int off,
   return m;
 }
 
-// Push the comparison of the tile's rows against a constant or a constant
-// list (inline IN). C is the column's storage type, T the comparison type. Rows
-// past R read nothing; the caller masks them.
-template <typename C, typename T>
-__device__ __forceinline__ void leaf_const(const PredProgram& P, int4 op,
-                                           int kind, int cmp, long long r0,
-                                           long long R,
-                                           unsigned (&st)[TILE_K]) {
-  const C* col = static_cast<const C*>(P.cols[op.y]);
-  T x[TILE_K];
-#pragma unroll
-  for (int k = 0; k < TILE_K; ++k) {
-    const long long r = r0 + 32 * k;
-    x[k] = r < R ? (T)col[r] : (T)0;
+// How eval_staged's pooled leaf searches its list (op.z, op.w): in the
+// program's pool in device memory. fused_scan_shuffle has its own
+// (shuffle.cu::ShufflePool).
+struct GlobalPool {
+  const long long* pool;
+  template <typename T>
+  __device__ __forceinline__ unsigned in(int4 op, const T (&x)[TILE_K]) const {
+    return pool_in<T>(pool, op.z, op.w, x);
   }
-  bool b[TILE_K];
-  if (kind == K_IN) {
-#pragma unroll
-    for (int k = 0; k < TILE_K; ++k) b[k] = false;
-    for (int j = 0; j < op.w; ++j) {
-      const T c = const_as<T>(P, op.z + j);
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) b[k] |= x[k] == c;
-    }
-  } else {
-    // one uniform branch per op, then a straight loop over the rows
-    const T c = const_as<T>(P, op.z);
-    if (cmp == 0) {  // expressions.CMP_OPS order
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) b[k] = x[k] <= c;
-    } else if (cmp == 1) {
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) b[k] = x[k] < c;
-    } else if (cmp == 2) {
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) b[k] = x[k] >= c;
-    } else if (cmp == 3) {
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) b[k] = x[k] > c;
-    } else {
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) b[k] = x[k] == c;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < TILE_K; ++k) st[k] = (st[k] << 1) | (b[k] ? 1u : 0u);
-}
+};
 
 template <typename T>
 __device__ __forceinline__ bool cmp_op(int op, T a, T b) {
@@ -228,121 +167,12 @@ __device__ __forceinline__ bool cmp_op(int op, T a, T b) {
   }
 }
 
-// Column-column comparison in type T (rare: no typed fast path).
-template <typename T>
-__device__ __forceinline__ void leaf_cols(const PredProgram& P, int4 op,
-                                          int cmp, long long r0, long long R,
-                                          unsigned (&st)[TILE_K]) {
-#pragma unroll
-  for (int k = 0; k < TILE_K; ++k) {
-    const long long r = r0 + 32 * k;
-    const bool b = r < R && cmp_op<T>(cmp, load_as<T>(P, op.y, r),
-                                      load_as<T>(P, op.z, r));
-    st[k] = (st[k] << 1) | (b ? 1u : 0u);
-  }
-}
-
-// The pooled IN leaf of eval_tile: bit k says whether row r0 + 32 * k is
-// in the list (rows past R read nothing). C is the column's storage type,
-// T the comparison type.
-template <typename C, typename T>
-__device__ __forceinline__ unsigned tile_pool_typed(const PredProgram& P,
-                                                    int4 op, long long r0,
-                                                    long long R) {
-  const C* col = static_cast<const C*>(P.cols[op.y]);
-  T x[TILE_K];
-#pragma unroll
-  for (int k = 0; k < TILE_K; ++k) {
-    const long long r = r0 + 32 * k;
-    x[k] = r < R ? (T)col[r] : (T)0;
-  }
-  return pool_in<T>(P.pool, op.z, op.w, x);
-}
-
-__device__ __forceinline__ unsigned tile_pool_leaf(const PredProgram& P,
-                                                   int4 op, long long r0,
-                                                   long long R) {
-  switch (P.dtypes[op.y] * 3 + ((op.x >> 8) & 3)) {
-    case DT_I32 * 3 + MODE_I64: return tile_pool_typed<int, long long>(P, op, r0, R);
-    case DT_I32 * 3 + MODE_F64: return tile_pool_typed<int, double>(P, op, r0, R);
-    case DT_I64 * 3 + MODE_I64: return tile_pool_typed<long long, long long>(P, op, r0, R);
-    case DT_I64 * 3 + MODE_F64: return tile_pool_typed<long long, double>(P, op, r0, R);
-    case DT_F32 * 3 + MODE_F32: return tile_pool_typed<float, float>(P, op, r0, R);
-    case DT_F32 * 3 + MODE_F64: return tile_pool_typed<float, double>(P, op, r0, R);
-    case DT_F64 * 3 + MODE_F64: return tile_pool_typed<double, double>(P, op, r0, R);
-    default: return 0u;  // a pairing compare_dtype never makes
-  }
-}
-
-// Bit k of the result is the predicate of row r0 + 32 * k (r0 = the tile's
-// base + lane); rows at or past R give 0. The types a leaf may pair are
-// the ones expressions.compare_dtype produces. P holds no MODE_I32 leaf
-// (that would decode here as DT_I64 * 3 + MODE_I64): narrowed programs are
-// StagedPrograms, which only eval_staged takes.
-//
-// POOL = false compiles no pooled leaf: any pooled branch in the loop,
-// inlined or out of line, cost fused_scan_shuffle 26-48% on programs that
-// have no pooled leaf (Q19 0.7248 -> 0.9137 ms, Q3 0.3334 -> 0.4928;
-// profile_kernels.py fused_scan_shuffle, NVIDIA H100 80GB HBM3, 700.00 W),
-// so the launch picks POOL from the program (has_pool).
-template <bool POOL>
-__device__ __forceinline__ unsigned eval_tile(const PredProgram& P,
-                                              long long r0, long long R) {
-  unsigned st[TILE_K];
-#pragma unroll
-  for (int k = 0; k < TILE_K; ++k) st[k] = 0u;
-  for (int i = 0; i < P.n_ops; ++i) {
-    const int4 op = P.ops[i];
-    const int kind = op.x & 15, cmp = (op.x >> 4) & 7, mode = (op.x >> 8) & 3;
-    if (kind == K_AND || kind == K_OR) {
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) {
-        const unsigned top = st[k] & 1u;
-        st[k] >>= 1;
-        st[k] = kind == K_AND ? (st[k] & (~1u | top)) : (st[k] | top);
-      }
-    } else if (kind == K_CMP_COL) {
-      if (mode == MODE_I64) leaf_cols<long long>(P, op, cmp, r0, R, st);
-      else if (mode == MODE_F32) leaf_cols<float>(P, op, cmp, r0, R, st);
-      else leaf_cols<double>(P, op, cmp, r0, R, st);
-    } else if (POOL && kind == K_IN_POOL) {
-      const unsigned m = tile_pool_leaf(P, op, r0, R);
-#pragma unroll
-      for (int k = 0; k < TILE_K; ++k) st[k] = (st[k] << 1) | ((m >> k) & 1u);
-    } else {
-      switch (P.dtypes[op.y] * 3 + mode) {
-        case DT_I32 * 3 + MODE_I64:
-          leaf_const<int, long long>(P, op, kind, cmp, r0, R, st); break;
-        case DT_I32 * 3 + MODE_F64:
-          leaf_const<int, double>(P, op, kind, cmp, r0, R, st); break;
-        case DT_I64 * 3 + MODE_I64:
-          leaf_const<long long, long long>(P, op, kind, cmp, r0, R, st); break;
-        case DT_I64 * 3 + MODE_F64:
-          leaf_const<long long, double>(P, op, kind, cmp, r0, R, st); break;
-        case DT_F32 * 3 + MODE_F32:
-          leaf_const<float, float>(P, op, kind, cmp, r0, R, st); break;
-        case DT_F32 * 3 + MODE_F64:
-          leaf_const<float, double>(P, op, kind, cmp, r0, R, st); break;
-        case DT_F64 * 3 + MODE_F64:
-          leaf_const<double, double>(P, op, kind, cmp, r0, R, st); break;
-        default:  // a pairing compare_dtype never makes: select no row
-#pragma unroll
-          for (int k = 0; k < TILE_K; ++k) st[k] <<= 1;
-      }
-    }
-  }
-  unsigned keep = 0u;
-#pragma unroll
-  for (int k = 0; k < TILE_K; ++k)
-    keep |= ((st[k] & 1u) && r0 + 32 * k < R) ? (1u << k) : 0u;
-  return keep;
-}
-
-// ---- staged evaluation (predicate_bitmap.cu, fused_scan_agg.cu) -----------
+// ---- staged evaluation --------------------------------------------------
 // The program over a tile staged in shared memory: column c's rows start at
 // base + off[c], rows are 32-bit numbers from the tile's start, and lane l
-// holds rows r0 + 32 * k (r0 = the sub-tile's base + l). It costs fewer
-// instructions per row than eval_tile:
+// holds rows r0 + 32 * k for k < TILE_K (r0 = the sub-tile's base + l).
+// Each op is decoded once per TILE_K rows of a lane, and each leaf has
+// TILE_K independent loads in flight.
 // - the stack is transposed: an entry is the TILE_K-bit mask of the lane's
 //   rows, and W 64-bit words hold 8 * W entries (the top in the low byte),
 //   so an AND or OR is a few instructions for all the lane's rows;
@@ -350,14 +180,10 @@ __device__ __forceinline__ unsigned eval_tile(const PredProgram& P,
 // - MODE_I32, which the launch sets on an int32 column's leaf whose
 //   constants all fit in int32, compares in 32 bits (the int64 comparison
 //   of two int32 values gives the same answer).
-// It is kept apart from eval_tile: routing eval_tile's callers through a
-// template shared with it cost fused_scan_shuffle 26% (0.7228 -> 0.9123 ms
-// on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md).
 #define MODE_I32 3  // the free value of the 2-bit mode field
 
-// A program after narrow_int_leaves. It is a type of its own so that it
-// cannot reach eval_tile, whose dtype * 3 + mode decode would read a
-// MODE_I32 leaf of an int32 column as an int64 one.
+// A program after narrow_int_leaves, the type eval_staged takes: a launch
+// cannot hand it a program it has not narrowed.
 struct StagedProgram {
   PredProgram p;
 };
@@ -417,10 +243,11 @@ __device__ __forceinline__ T staged_as(int dtype, const void* p, int r) {
 }
 
 // The mask of the lane's rows against a constant or a constant list (IN,
-// inline or pooled);
+// inline or pooled, the pooled one searched through `pool`);
 // bits of rows past n are undefined (eval_staged clears them).
-template <typename C, typename T, bool FULL>
+template <typename C, typename T, bool FULL, typename Pool>
 __device__ __forceinline__ unsigned staged_leaf(const PredProgram& P,
+                                                const Pool& pool,
                                                 const void* col_ptr, int4 op,
                                                 int kind, int cmp, int r0,
                                                 int n) {
@@ -432,7 +259,7 @@ __device__ __forceinline__ unsigned staged_leaf(const PredProgram& P,
     const int r = r0 + 32 * k;
     x[k] = (FULL || r < n) ? (T)col[r] : (T)0;
   }
-  if (kind == K_IN_POOL) return pool_in<T>(P.pool, op.z, op.w, x);
+  if (kind == K_IN_POOL) return pool.template in<T>(op, x);
   unsigned m = 0u;
   if (kind == K_IN) {
     for (int j = 0; j < op.w; ++j) {
@@ -481,16 +308,17 @@ __device__ __forceinline__ unsigned staged_leaf_cols(
 
 // Bit k of the result is the predicate of row r0 + 32 * k; rows at or past
 // n give 0. W 64-bit stack words hold a program of depth up to 8 * W.
-// Unlike eval_tile, it keeps the pooled leaf in every instantiation: the
-// branch moved the staged kernels by under 2% on programs without one (Q1's
-// four sums 1.0686 -> 1.0862 ms, Q19's words 0.3511 -> 0.3478 ms; NVIDIA
-// H100 80GB HBM3, 700.00 W), and a POOL parameter would double
-// fused_scan_agg.cu's kernels, the longest build of chip_smoke.py.
-template <int W, bool FULL>
+// Pooled leaves search their lists through `pool`. Every instantiation
+// keeps the pooled leaf: the branch moved the staged kernels by under 2% on
+// programs without one (Q1's four sums 1.0686 -> 1.0862 ms, Q19's words
+// 0.3511 -> 0.3478 ms; NVIDIA H100 80GB HBM3, 700.00 W), and a POOL
+// parameter would double fused_scan_agg.cu's kernels, the longest build of
+// chip_smoke.py.
+template <int W, bool FULL, typename Pool>
 __device__ __forceinline__ unsigned eval_staged(const StagedProgram& S,
                                                 const unsigned char* base,
                                                 const int* off, int r0,
-                                                int n) {
+                                                int n, const Pool& pool) {
   const PredProgram& P = S.p;
   MaskStack<W> st;
 #pragma unroll
@@ -512,21 +340,21 @@ __device__ __forceinline__ unsigned eval_staged(const StagedProgram& S,
       unsigned m = 0u;  // a pairing compare_dtype never makes selects no row
       switch (P.dtypes[op.y] * 4 + mode) {
         case DT_I32 * 4 + MODE_I32:
-          m = staged_leaf<int, int, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<int, int, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
         case DT_I32 * 4 + MODE_I64:
-          m = staged_leaf<int, long long, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<int, long long, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
         case DT_I32 * 4 + MODE_F64:
-          m = staged_leaf<int, double, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<int, double, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
         case DT_I64 * 4 + MODE_I64:
-          m = staged_leaf<long long, long long, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<long long, long long, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
         case DT_I64 * 4 + MODE_F64:
-          m = staged_leaf<long long, double, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<long long, double, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
         case DT_F32 * 4 + MODE_F32:
-          m = staged_leaf<float, float, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<float, float, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
         case DT_F32 * 4 + MODE_F64:
-          m = staged_leaf<float, double, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<float, double, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
         case DT_F64 * 4 + MODE_F64:
-          m = staged_leaf<double, double, FULL>(P, c, op, kind, cmp, r0, n); break;
+          m = staged_leaf<double, double, FULL>(P, pool, c, op, kind, cmp, r0, n); break;
       }
       st.push(m);
     }
@@ -538,6 +366,16 @@ __device__ __forceinline__ unsigned eval_staged(const StagedProgram& S,
       keep &= r0 + 32 * k < n ? ~0u : ~(1u << k);
   }
   return keep;
+}
+
+// eval_staged with the pooled lists searched in device memory
+// (predicate_bitmap.cu, fused_scan_agg.cu).
+template <int W, bool FULL>
+__device__ __forceinline__ unsigned eval_staged(const StagedProgram& S,
+                                                const unsigned char* base,
+                                                const int* off, int r0,
+                                                int n) {
+  return eval_staged<W, FULL>(S, base, off, r0, n, GlobalPool{S.p.pool});
 }
 
 // ---- staging helpers (sm_90): mbarriers and 1-D bulk copies (TMA) --------

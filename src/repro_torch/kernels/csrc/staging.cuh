@@ -1,6 +1,6 @@
 // Staging of predicate-column tiles in shared memory, shared by the kernels
 // that interpret a program with program.cuh::eval_staged
-// (predicate_bitmap.cu, fused_scan_agg.cu).
+// (predicate_bitmap.cu, fused_scan_agg.cu, shuffle.cu).
 //
 // A block of CONSUMER_WARPS + 1 warps keeps a ring of 2 to MAX_STAGES
 // stages in dynamic shared memory, after a HEADER that holds the ring's
@@ -29,10 +29,12 @@
 #define SMEM_RESERVED (1024)
 
 // Where each column's rows sit inside a stage; built by the host per launch.
+// A stage holds the program's columns and at most one more
+// (PredProgram::cols).
 struct StageLayout {
-  int off[PP_MAX_COLS];      // row 0 of column c: region + its 16-byte head
-  int region[PP_MAX_COLS];   // column c's 16-byte-aligned region in a stage
-  int size[PP_MAX_COLS];     // bytes per value
+  int off[PP_MAX_COLS + 1];     // row 0 of column c: region + its 16-byte head
+  int region[PP_MAX_COLS + 1];  // column c's 16-byte-aligned region in a stage
+  int size[PP_MAX_COLS + 1];    // bytes per value
   int n_cols, n_stages, tile_rows, stage_bytes;
 };
 

@@ -155,7 +155,10 @@ def grouped_agg(t: ColumnTable, keys: Sequence[str],
         if fn == "count":
             out[name] = counts
         elif fn == "sum":
-            out[name] = sums[name][nz]
+            # numpy's bincount of no rows is int64 even with weights, so
+            # the reference's keyed sum over an empty table is int64
+            out[name] = sums[name][nz] if len(t) else \
+                sums[name][nz].to(torch.int64)
         elif fn == "mean":
             out[name] = sums[name][nz] / torch.clamp(counts, min=1)
         else:

@@ -426,6 +426,133 @@ def test_fused_scan_shuffle_matches_plain(cuda, R, P):
             assert torch.equal(a, b), expr
 
 
+def _deep_predicate():
+    """A right-nested AND of 12 leaves: stack depth 12 (past 8, W > 1)."""
+    C = Col
+    leaves = [C("a") < 45, C("b") >= -4, C("x") <= 0.95, C("d") < 0.1,
+              C("a") >= 2, C("b").isin((-4, -3, -1, 0, 2, 3, 4)),
+              C("x") > 0.01, C("d") <= C("e"), C("a").isin(tuple(range(40))),
+              C("b") <= 3, C("x") < 0.99, C("d") >= 0.0]
+    expr = leaves[-1]
+    for leaf in reversed(leaves[:-1]):
+        expr = leaf & expr
+    return expr
+
+
+def _depth(prog) -> int:
+    d = most = 0
+    for code in prog.ops[:, 0].tolist():
+        d += -1 if code & 15 in (3, 4) else 1  # K_AND, K_OR pop one
+        most = max(most, d)
+    return most
+
+
+# one consumer warp's sub-tile (256 rows) and one tile (2048) either side,
+# one tile a block (one partition), and more tiles than the grid has blocks
+SHUFFLE_ROWS = (1, 31, 255, 256, 257, 2047, 2048, 2049, 6244, 600_000,
+                2_000_003)
+
+
+@pytest.mark.parametrize("key_dtype", (np.int32, np.int64))
+@pytest.mark.parametrize("offset", (0, 1, 2, 3))
+@pytest.mark.parametrize("R", SHUFFLE_ROWS)
+def test_fused_scan_shuffle_staged_tiles_match_plain(cuda, R, offset,
+                                                     key_dtype):
+    """Keys and columns as views that start 0-3 rows into their
+    allocations (each at its own offset, so each bulk copy's head and tail
+    are unaligned), int32 and int64 keys (only the low 32 bits hash), no
+    program, programs of depth 1 and past 8, at P = 1, 8 (register
+    counters), 9 and 8192 (shared counters beside the ring)."""
+    host = {k: v.cpu().numpy()
+            for k, v in _columns(R, R + offset, "cpu").items()}
+    cols = {k: _view_at(v, (offset + i) % 4 if offset else 0, cuda)
+            for i, (k, v) in enumerate(host.items())}
+    key_host = _keys(R, key_dtype, "cpu").numpy()
+    if key_dtype == np.int64:  # high bits that must not change the target
+        shift = np.arange(R, dtype=np.int64) % 31 + 32
+        key_host = key_host ^ (np.int64(1) << shift)
+    # 1-3 rows off for int32 keys, 1 or 3 for int64 (2 rows are 16 bytes)
+    key_off = offset if key_dtype == np.int32 or offset != 2 else 1
+    keys = _view_at(key_host, key_off, cuda)
+    if offset:
+        assert keys.data_ptr() % 16 and any(c.data_ptr() % 16
+                                            for c in cols.values())
+    progs = [None] + [program_for(e, cols) for e in
+                      (Col("a") < 25, _deep_predicate(),
+                       _staging_predicates()[1])]
+    assert _depth(progs[2]) > 8
+    for P in (1, 8, 9, 8192):
+        for prog in progs:
+            pcols = [cols[c] for c in prog.columns] if prog else []
+            out = fss.fused_scan_shuffle(prog, pcols, keys, P)
+            plain = ref.fused_scan_shuffle(prog, pcols, keys, P)
+            for a, b in zip(out, plain):
+                assert a.dtype == b.dtype and torch.equal(a, b), (P, prog)
+
+
+def _pooled_lists(host, rng):
+    """A pooled In (100 values) on each column type: an int32 column with
+    values past int32's range too (int64 list, narrowed), an int64 one, an
+    f32 one compared in f32 and one in f64, an f64 one; each list holds the
+    column's least and greatest values (the pool's first and last) and,
+    for floats, -0.0 against columns that hold 0.0 and -0.0."""
+    a, b, x, d = host["a"], host["b"], host["x"], host["d"]
+    ints = rng.choice(1000, 96, replace=False) + 100
+    ivals = (int(a.min()), int(a.max()), -2 ** 40, 2 ** 40) + tuple(
+        int(v) for v in ints)
+    bvals = (int(b.min()), int(b.max())) + tuple(int(v) for v in ints[:98])
+    xs = np.concatenate([[x.min(), x.max(), -0.0], x[:50],
+                         rng.uniform(0.0, 1.0, 50)]).astype(np.float32)
+    ds = np.concatenate([[d.min(), d.max(), -0.0], np.arange(97) / 50.0])
+    return [Col("a").isin(ivals), Col("b").isin(bvals),
+            Col("x").isin(tuple(np.float32(v) for v in xs)),
+            Col("x").isin(tuple(float(v) for v in xs)),
+            Col("d").isin(tuple(float(v) for v in ds)),
+            (Col("a").isin(ivals) & (Col("d") > 0.02))
+            | Col("x").isin(tuple(float(v) for v in xs))]
+
+
+@pytest.mark.parametrize("offset", (0, 1, 3))
+@pytest.mark.parametrize("R", (33, 2049, 1_000_003))
+def test_fused_scan_shuffle_pooled_in_matches_plain(cuda, R, offset):
+    """Pooled In lists searched in shared memory on every column type, and
+    lists too large for it searched in device memory."""
+    host = {k: v.cpu().numpy()
+            for k, v in _columns(R, R + offset, "cpu").items()}
+    rng = np.random.default_rng(R)
+    host["x"][: min(R, 4)] = np.float32(0.0)
+    host["x"][4:8] = np.float32(-0.0)
+    host["d"][: min(R, 4)] = -0.0
+    host["d"][4:8] = 0.0
+    cols = {k: _view_at(v, (offset + i) % 4 if offset else 0, cuda)
+            for i, (k, v) in enumerate(host.items())}
+    keys = torch.from_numpy(rng.integers(0, 10 ** 6, R, np.int32)).to(cuda)
+    big = rng.choice(10 ** 7, 70_000, replace=False)
+    cases = [(e, 1) for e in _pooled_lists(host, rng)] + [
+        (Col("a").isin(tuple(int(v) for v in big)), 0),  # 280 KB narrowed
+        (Col("b").isin(tuple(int(v) - 5 * 10 ** 6 for v in big)), 0)]
+    for expr, staged in cases:
+        prog = program_for(expr, cols)
+        assert len(prog.pool) > 0, expr
+        pcols = [cols[c] for c in prog.columns]
+        for P in (4, 8192):
+            out = fss.fused_scan_shuffle(prog, pcols, keys, P)
+            assert fss.fused_scan_shuffle.last_launch["pool_staged"] == staged
+            plain = ref.fused_scan_shuffle(prog, pcols, keys, P)
+            assert all(torch.equal(a, b) for a, b in zip(out, plain)), expr
+
+
+def test_fused_scan_shuffle_reports_its_launch(cuda):
+    keys = torch.arange(100_000, dtype=torch.int32, device=cuda)
+    fss.fused_scan_shuffle(None, [], keys, 4)
+    got = fss.fused_scan_shuffle.last_launch
+    assert set(got) == set(fss.LAUNCH_FIELDS)
+    assert 1 <= got["blocks"] <= got["blocks_per_sm"] * \
+        torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert got["stages"] >= 2 and got["pool_staged"] == 0
+    assert got["tile_rows"] * got["blocks"] >= min(100_000, got["tile_rows"])
+
+
 def test_wrappers_count_their_launches(cuda):
     cols = _columns(1000, 0, cuda)
     ids = torch.zeros(1000, dtype=torch.int32, device=cuda)
