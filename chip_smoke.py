@@ -133,7 +133,28 @@ GPU is present. Phases:
    ``pool.events``); one traced split whose worker spans carry the
    workers' pids; Q6 failing to error without demotion once the first
    pool's node 0 dies. A hang past ``TIER_DEADLINE_S`` ends the script.
-13. Prints each kernel's launches in phases 3 to 12 (all must be above 0,
+13. Pipeline: the pushdown data pipeline (``repro_torch.data.pipeline``)
+   over a corpus of ``PIPE_CORPUS`` (64 partitions of 2048 documents of
+   2048 tokens, 268,435,456 int32 tokens uploaded once) with the
+   trainer's ``PIPE_QUERY`` (quality and domain filter, 8 DP ranks,
+   batches (4, 8, 2048)): every partition's ``fused_scan_shuffle`` launch
+   held bitwise to the plain version and timed; one epoch of batches and
+   one more drawn, its launches counted and equal to what the epoch's
+   histograms need; the first ``PIPE_CPU_BATCHES`` held bitwise to the
+   same pipeline on the CPU; ``stats()`` in no_pushdown, eager and
+   adaptive at storage power 1.0 and 0.1, each giving the same batch.
+14. Serve: ``SERVE_ARCH`` (olmo-1b, 16 layers, d_model 2048, vocab 50304,
+   1,176,764,416 parameters) drawn on the card; ``loss_fn`` over the
+   pipeline's first two batches, microbatch by microbatch (8, 2048),
+   within (0.5, 3) ln V; a 2048-token prefill blocked with and without
+   ``causal_skip`` against the materialized one; a decode step against
+   forward; a ``ServingEngine`` (``SERVE``) over ``SERVE_REQUESTS``
+   prompts of 96 to 320 pipeline tokens, ``SERVE_MAX_NEW`` new each: two
+   chunked waves and a batched one; the chunked prefill's last logits
+   against the batched one's; decode steps timed; every generic
+   architecture's reduced config on the card against the CPU. Model
+   checks hold to ``MODEL_TOL``.
+15. Prints each kernel's launches in phases 3 to 13 (all must be above 0,
    and on the tier ``predicate_bitmap``, ``fused_scan_agg`` and the two
    shuffle kernels inside the workers, ``grouped_agg`` in the parent's
    residuals), the per-kernel JSON line and, last, the ``{"ok": true,
@@ -190,6 +211,26 @@ TIER_SLOTS = 2                # threads a storage worker runs groups on: the
 TIER_DEADLINE_S = 300.0       # the tier phase's own deadline: a hang past it
 #                               dumps every thread's stack and exits 1
 WIRE_COUNTERS = ("wire.pushdown_result_bytes", "wire.pushback_ship_bytes")
+# the pipeline phase: a corpus a 1B-model pretraining feed would read (64
+# partitions of 2048 documents of 2048 tokens, 268,435,456 int32 tokens)
+# and the trainer's query: batches (accum 4, mb 8, S 2048), 8 DP ranks
+PIPE_CORPUS = dict(num_partitions=64, docs_per_part=2048, doc_len=2048,
+                   vocab=50304, hosts=4, seed=0)
+PIPE_QUERY = dict(min_quality=0.25, domains=(0, 1, 2, 3, 4, 5),
+                  seq_len=2048, global_batch=32, accum=4, dp_ranks=8)
+PIPE_CPU_BATCHES = 4          # batches held to the CPU pipeline's
+PIPE_PLAIN_TIMED = 4          # partitions whose plain version is timed
+PIPE_MODES = ("no_pushdown", "eager", "adaptive")
+PIPE_POWERS = (1.0, 0.1)
+# the serve phase: olmo-1b at full width, the engine's waves of 4 (two
+# chunked, the last of 2 batched)
+SERVE_ARCH = "olmo-1b"
+SERVE = dict(max_batch=4, max_len=512, prefill_chunk=64)
+SERVE_REQUESTS = 10
+SERVE_PROMPT = (96, 320)      # prompt lengths, cut from pipeline rows
+SERVE_MAX_NEW = 32
+MODEL_TOL = 2e-2              # rtol = atol on bf16 logits: the JAX
+#                               package's model tests' tolerance
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "fused_scan_agg": "src/repro/kernels/fused_scan_agg.py:56",
             "grouped_agg": "src/repro/kernels/grouped_agg.py:48",
@@ -2517,6 +2558,347 @@ def tier_phase(cat, sync, card: str = "no card"):
     return launches
 
 
+# ------------------------------------------------------ pipeline phase
+def epoch_plan(hists, order0, order1, need: int, doc_len: int):
+    """(batches the first epoch completes, launches until one batch more).
+    ``hists[pi]`` are partition ``pi``'s kept documents per rank; batches
+    drain as soon as every rank holds ``need`` tokens."""
+    per_rank = [0] * len(hists[0])
+    for pi in order0:
+        per_rank = [a + h * doc_len for a, h in zip(per_rank, hists[pi])]
+    epoch = min(per_rank) // need
+    per_rank = [0] * len(per_rank)
+    for n, pi in enumerate([*order0, *order1], start=1):
+        per_rank = [a + h * doc_len for a, h in zip(per_rank, hists[pi])]
+        if min(per_rank) // need > epoch:
+            return epoch, n
+    raise RuntimeError("two epochs do not make one batch more than one")
+
+
+def pipeline_phase(corpus_kw: dict, query_kw: dict, device, timer, sync,
+                   card: str = "no card"):
+    """The pushdown data pipeline (``repro_torch.data.pipeline``): the
+    corpus uploaded once, one epoch of batches and one more drawn (every
+    partition's filter and shuffle one ``fused_scan_shuffle`` launch),
+    each partition's launch held bitwise to the plain version and timed,
+    the first ``PIPE_CPU_BATCHES`` held bitwise to the same pipeline on the
+    CPU, and ``stats()`` in ``PIPE_MODES`` at ``PIPE_POWERS`` with the same
+    batches. Returns (launches of the driven epoch, the kernel record at
+    the pipeline's shape, the first two batches)."""
+    import numpy as np
+
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.data.pipeline import (CorpusQuery, PushdownDataPipeline,
+                                           synth_corpus)
+    from repro_torch.kernels import fused_scan_shuffle as fss
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+
+    t0 = time.perf_counter()
+    corpus = synth_corpus(**corpus_kw)
+    t_synth = time.perf_counter() - t0
+    query = CorpusQuery(**query_kw)
+    t0 = time.perf_counter()
+    pipe = PushdownDataPipeline(corpus, query, device=device)
+    sync()
+    t_up = time.perf_counter() - t0
+    n_tok = sum(p.tokens.size for p in corpus)
+    print(f"pipeline: corpus {len(corpus)} partitions x "
+          f"{corpus_kw['docs_per_part']} docs x {corpus_kw['doc_len']} "
+          f"tokens ({n_tok} int32 tokens) made in {t_synth:.2f} s, on "
+          f"{device} in {t_up:.2f} s; {card}")
+
+    # every partition's launch against the plain version, timed (the
+    # plain version, whose host time is ~100x the launch's, on a few)
+    t0 = time.perf_counter()
+    expr, P = query.predicate(), query.dp_ranks
+    hists, ms, plain_ms = [], [], []
+    for pi, part in enumerate(pipe._parts):
+        got = kops.fused_scan_shuffle(part.cols, expr, part.doc_id, P)
+        prog = program_for(expr, part.cols)
+        pcols = [part.cols[c] for c in prog.columns]
+        want = ref.fused_scan_shuffle(prog, pcols, part.doc_id, P)
+        check(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, want)),
+              "pipeline: a partition's fused_scan_shuffle differs from the "
+              "plain version")
+        hists.append(got[2].tolist())
+        ms.append(timer(lambda: fss.fused_scan_shuffle(
+            prog, pcols, part.doc_id, P)))
+        if pi < PIPE_PLAIN_TIMED:
+            plain_ms.append(timer(lambda: ref.fused_scan_shuffle(
+                prog, pcols, part.doc_id, P)))
+    t_held = time.perf_counter() - t0
+    R = corpus_kw["docs_per_part"]
+    b_ms, b_by = bound(nbytes(*pcols, part.doc_id, *got),
+                       R * (prog.n_ops + 3))
+    record = dict(name="fused_scan_shuffle", max_abs_err=0.0,
+                  ms=statistics.median(ms), plain_ms=statistics.median(
+                      plain_ms), bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None,
+                  shape=f"corpus partition, R={R}, quality >= "
+                        f"{query.min_quality} & domain in "
+                        f"{len(query.domains or ())} values, int64 doc_id, "
+                        f"P={P}; median of {len(ms)} partitions (min "
+                        f"{min(ms):.4f}, max {max(ms):.4f}; bound "
+                        f"{b_ms:.3g}), plain of {len(plain_ms)}")
+
+    # one epoch and one batch more, counted
+    rng = np.random.default_rng(pipe.seed)
+    order0, order1 = rng.permutation(len(corpus)), rng.permutation(
+        len(corpus))
+    mb = query.global_batch // query.accum
+    need = query.seq_len * max(1, mb // P) * query.accum
+    epoch, expect = epoch_plan(hists, order0, order1, need,
+                               corpus_kw["doc_len"])
+    drive, launches, host_s = launch_counting(sync)
+    first = []
+
+    def draw():
+        for i in range(epoch + 1):
+            b = next(pipe)["tokens"]
+            if i < max(PIPE_CPU_BATCHES, 2):
+                first.append(b)
+    drive(draw)
+    shape = (query.accum, mb, query.seq_len)
+    check(all(tuple(b.shape) == shape and b.dtype == torch.int32 and
+              b.device.type == torch.device(device).type for b in first),
+          "pipeline: a batch has the wrong shape, dtype or device")
+    # CPU tensors run the plain version, which counts no launch
+    want = expect if torch.device(device).type == "cuda" else 0
+    check(launches["fused_scan_shuffle"] == want,
+          f"pipeline: {launches['fused_scan_shuffle']} launches, the epoch "
+          f"plan needs {want}")
+    check(expect > len(corpus), "pipeline: the epoch left a partition out")
+    check(all(n == 0 for k, n in launches.items()
+              if k != "fused_scan_shuffle"),
+          "pipeline: a kernel other than fused_scan_shuffle launched")
+    tok = (epoch + 1) * query.global_batch * query.seq_len
+    print(f"pipeline: {epoch} batches {shape} in the epoch, {epoch + 1} "
+          f"drawn with {expect} fused_scan_shuffle launches in "
+          f"{host_s['done']:.4f} s ({tok / host_s['done']:.0f} tokens/s); "
+          f"launch median {record['ms']:.4f} ms over {len(ms)} partitions, "
+          f"plain {record['plain_ms']:.4f} ms; {card}")
+
+    t0 = time.perf_counter()
+    cpu = PushdownDataPipeline(corpus, query, device="cpu")
+    for i in range(PIPE_CPU_BATCHES):
+        check(torch.equal(first[i].cpu(), next(cpu)["tokens"]),
+              f"pipeline: batch {i} differs from the CPU pipeline's")
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = {}
+    for mode in PIPE_MODES:
+        for power in PIPE_POWERS:
+            p = PushdownDataPipeline(corpus, query, StorageResources(
+                storage_power=power), mode=mode, device=device)
+            check(torch.equal(next(p)["tokens"], first[0]),
+                  f"pipeline: {mode} at power {power} gives another batch")
+            st = stats[mode, power] = p.stats()
+            check(st["admitted"] + st["pushed_back"] == len(corpus),
+                  f"pipeline: {mode} {power} loses a partition's decision")
+            check(mode != "no_pushdown" or st["admitted"] == 0,
+                  "pipeline: no_pushdown admitted a pushdown")
+            check(mode != "eager" or st["pushed_back"] == 0,
+                  "pipeline: eager pushed a partition back")
+            print(f"pipeline stats: {mode} power={power}: admitted "
+                  f"{st['admitted']:.0f}, pushed back "
+                  f"{st['pushed_back']:.0f}, ingest makespan "
+                  f"{st['ingest_makespan_s']:.6f} s (simulated), ingest "
+                  f"net bytes {st['ingest_net_bytes']:.0f}")
+            del p
+    check(stats["adaptive", 0.1]["pushed_back"] >=
+          stats["adaptive", 1.0]["pushed_back"],
+          "pipeline: adaptive pushed back less at power 0.1 than at 1.0")
+    print(f"pipeline: {len(ms)} launches held and timed in {t_held:.2f} s, "
+          f"{PIPE_CPU_BATCHES} batches held to the CPU's in {t_cpu:.2f} s, "
+          f"{len(stats)} mode pipelines in {time.perf_counter() - t0:.2f} s")
+    return launches, record, first[:2]
+
+
+# --------------------------------------------------------- serve phase
+def serve_phase(cfg, batches, device, sync, card: str = "no card",
+                seed: int = 0):
+    """The generic decoder and the serving engine at ``cfg``'s width:
+    parameters drawn on ``device``, ``loss_fn`` over every microbatch of
+    the pipeline's ``batches``, the blocked prefill of one row with and
+    without ``causal_skip`` against the materialized one, a decode step
+    against forward, the ``ServingEngine`` over ``SERVE_REQUESTS``
+    requests cut from pipeline rows (both prefill branches), the chunked
+    prefill's last logits against the batched one's on a wave, and every
+    generic architecture's reduced config on ``device`` against the CPU.
+    Tolerances: ``MODEL_TOL`` (rtol = atol), the JAX package's model
+    tests'."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.models.params import tree_map_specs
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    def close(a, b, what):
+        a, b = a.float().cpu(), b.float().cpu()
+        err = float((a - b).abs().max())
+        check(torch.isfinite(a).all() and torch.allclose(
+            a, b, rtol=MODEL_TOL, atol=MODEL_TOL),
+              f"serve: {what} differ (max abs {err:.3g})")
+        return err
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model, s = timed(lambda: api.init_params(cfg, gen, device))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == api.count_params(cfg), "serve: parameter count")
+    print(f"serve: {cfg.name} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} parameters "
+          f"({2 * n_params / 1e9:.2f} GB bf16) drawn on {device} in "
+          f"{s:.2f} s; {card}")
+
+    # loss over every microbatch of the pipeline's batches
+    losses, secs = [], []
+    for b in batches:
+        for mb in b:
+            loss, s = timed(lambda: float(api.loss_fn(model, cfg,
+                                                      {"tokens": mb})))
+            check(math.isfinite(loss) and 0.5 * math.log(cfg.vocab_size)
+                  < loss < 3.0 * math.log(cfg.vocab_size),
+                  f"serve: loss {loss} outside (0.5, 3) ln V")
+            losses.append(loss)
+            secs.append(s)
+    mb_tok = batches[0][0].numel()
+    print(f"serve: loss_fn over {len(losses)} microbatches "
+          f"{tuple(batches[0][0].shape)}: losses {min(losses):.4f}.."
+          f"{max(losses):.4f} (ln V = {math.log(cfg.vocab_size):.4f}), "
+          f"median {statistics.median(secs) * 1e3:.1f} ms a microbatch, "
+          f"{mb_tok / statistics.median(secs):.0f} tokens/s (first call "
+          f"{secs[0] * 1e3:.1f} ms); {card}")
+
+    # the blocked prefill at full length, and prefill/decode consistency
+    row = batches[0][0][:1]                           # (1, S)
+    S = row.shape[1]
+    (full, _, _, _), s_full = timed(lambda: api.forward(
+        model, cfg, {"tokens": row}))
+    for skip in (False, True):
+        (lg, _, _, (k, v)), s = timed(lambda: api.forward(
+            model, cfg, {"tokens": row}, blockwise=True, causal_skip=skip,
+            collect_cache=True))
+        err = close(lg, full, f"blocked prefill (causal_skip={skip}) logits")
+        check(tuple(k.shape) == (cfg.num_layers, 1, S, cfg.num_kv_heads,
+                                 cfg.head_dim), "serve: prefill cache shape")
+        print(f"serve: prefill S={S} blocked causal_skip={skip} "
+              f"{s * 1e3:.1f} ms (materialized {s_full * 1e3:.1f} ms), "
+              f"max abs err {err:.3g} against the materialized; {card}")
+        del lg, k, v
+    last, cache = api.build_decode_cache(model, cfg,
+                                         {"tokens": row[:, :S - 1]}, S)
+    err_last = close(last, full[:, -2], "prefill's last logits and forward")
+    (dec, _), s = timed(lambda: api.decode_step(model, cfg, cache, S - 1,
+                                                row[:, S - 1:]))
+    err_dec = close(dec[:, 0], full[:, -1], "decode step and forward")
+    print(f"serve: prefill/decode consistency at S={S}: max abs err "
+          f"{err_last:.3g} (prefill), {err_dec:.3g} (decode step, "
+          f"{s * 1e3:.1f} ms at B=1); {card}")
+    del full, last, cache, dec
+
+    # the engine: waves of max_batch, the last one smaller
+    scfg = ServeConfig(**SERVE)
+    rng = np.random.default_rng(seed)
+    rows = torch.cat([b.reshape(-1, b.shape[-1]) for b in batches])
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                        SERVE_REQUESTS)
+    prompts = [rows[i, :n].cpu().numpy() for i, n in enumerate(lens)]
+    reqs = [Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    eng = ServingEngine(cfg, model, scfg)
+    _, s = timed(lambda: eng.serve(reqs))
+    waves = -(-SERVE_REQUESTS // scfg.max_batch)
+    chunked = sum(eng.policy.chunked(len(reqs[i:i + scfg.max_batch]))
+                  for i in range(0, SERVE_REQUESTS, scfg.max_batch))
+    check(all(len(r.out_tokens) == SERVE_MAX_NEW and r.done for r in reqs),
+          "serve: a request missed its budget")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+          "serve: a token outside the vocabulary")
+    check(eng.chunked_prefills == chunked and 0 < chunked < waves,
+          f"serve: {eng.chunked_prefills} chunked prefills of {waves} "
+          f"waves, the policy asks for {chunked} and a batched one")
+    out_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"serve: engine {SERVE_REQUESTS} requests (prompts "
+          f"{min(lens)}..{max(lens)} tokens, {SERVE_MAX_NEW} new each) in "
+          f"{waves} waves, {eng.chunked_prefills} chunked and "
+          f"{waves - eng.chunked_prefills} batched prefills: {out_tok} "
+          f"tokens in {s:.3f} s, {out_tok / s:.1f} served tokens/s; {card}")
+
+    # the chunked prefill's last logits against the batched one's
+    wave = prompts[:scfg.max_batch]
+    P = max(len(p) for p in wave)
+    toks = torch.zeros((len(wave), P), dtype=torch.int32)
+    for b, p in enumerate(wave):
+        toks[b, P - len(p):] = torch.from_numpy(p)
+    toks = toks.to(device)
+    batched = ServingEngine(cfg, model, dataclasses.replace(
+        scfg, prefill_chunk=scfg.max_len))
+    lb, cb = batched._prefill(toks, live_slots=len(wave))
+    lc, cc = eng._prefill(toks, live_slots=len(wave))
+    err = close(lc, lb, "chunked and batched prefill's last logits")
+    print(f"serve: chunked against batched prefill on a wave of "
+          f"{len(wave)} x {P}: max abs err {err:.3g}; {card}")
+    del lb, cb, lc, cc
+
+    # decode steps at the engine's batch, from a prefilled wave
+    _, cache = api.build_decode_cache(model, cfg, {"tokens": toks},
+                                      scfg.max_len)
+    tok = toks[:, -1:]
+
+    def steps():
+        nonlocal cache, tok
+        for i in range(SERVE_MAX_NEW):
+            logits, cache = api.decode_step(model, cfg, cache, P + i, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    _, s = timed(steps)
+    peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if on_card else "not measured")
+    print(f"serve: decode {s / SERVE_MAX_NEW * 1e3:.2f} ms a step at "
+          f"B={len(wave)}, cache {scfg.max_len}; peak "
+          f"max_memory_allocated {peak}; {card}")
+    del model, cache, eng, batched
+
+    # every generic architecture's reduced config: device against CPU
+    for arch in ARCH_IDS:
+        small = get_config(arch, reduced=True)
+        if small.family not in ("dense", "moe", "vlm"):
+            continue
+        m = api.init_params(small, torch.Generator(device=device)
+                            .manual_seed(seed), device)
+        mcpu = transformer.Decoder(small, tree_map_specs(
+            lambda t: t.cpu(), m.tree()))
+        g = torch.Generator().manual_seed(seed)
+        batch = {"tokens": torch.randint(0, small.vocab_size, (2, 64),
+                                         generator=g, dtype=torch.int32)}
+        if small.family == "vlm":
+            batch["patches"] = torch.randn(
+                (2, small.num_patches, small.patch_dim),
+                generator=g).to(torch.bfloat16)
+        lg, aux, _, _ = api.forward(m, small, {k: v.to(device)
+                                               for k, v in batch.items()})
+        lgc, auxc, _, _ = api.forward(mcpu, small, batch)
+        err = close(lg, lgc, f"{arch} reduced logits on {device} and CPU")
+        close(aux, auxc, f"{arch} reduced aux on {device} and CPU")
+        print(f"serve: {arch} reduced ({small.num_layers} layers, d_model "
+              f"{small.d_model}) on {device} against the CPU: max abs err "
+              f"{err:.3g}")
+
+
 def print_records(recs, names) -> None:
     """One line per kernel record; ``names`` label records that carry no
     ``name`` of their own."""
@@ -2629,15 +3011,29 @@ def main() -> int:
     t0 = time.perf_counter()
     tiered = tier_phase(cat, torch.cuda.synchronize, smi[0])
     print(f"tier phase: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    piped, pipe_record, first = pipeline_phase(
+        PIPE_CORPUS, PIPE_QUERY, "cuda", cuda_ms, torch.cuda.synchronize,
+        smi[0])
+    print(f"pipeline phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
+    print_records([pipe_record], [])
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    serve_phase(get_config(SERVE_ARCH), first, "cuda",
+                torch.cuda.synchronize, smi[0], args.seed)
+    del first
+    print(f"serve phase: {time.perf_counter() - t0:.2f} s")
     launches = {n: engine[n] + tensor[n] + costed[n] + comp[n] + sec42[n]
                 + cached[n] + faulted[n] + streamed[n] + traced[n]
-                + tiered[n] for n in records}
+                + tiered[n] + piped[n] for n in records}
     print("kernels: " + "; ".join(
         f"{n} check=ok launches={launches[n]} (engine {engine[n]}, tensor "
         f"{tensor[n]}, costed {costed[n]}, compiler {comp[n]}, section 4.2 "
         f"{sec42[n]}, cache {cached[n]}, faults {faulted[n]}, stream "
-        f"{streamed[n]}, trace {traced[n]}, tier {tiered[n]})"
-        for n in records))
+        f"{streamed[n]}, trace {traced[n]}, tier {tiered[n]}, pipeline "
+        f"{piped[n]})" for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
     # each query's stages calling grouped_agg is checked in tensor_phase

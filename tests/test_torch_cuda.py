@@ -1258,3 +1258,115 @@ def test_lex_aggregate_at_one_group_a_row_matches_plain(cuda, R):
     for k in ("k", "c", "m"):
         assert torch.equal(g[k], c[k]), k
     assert torch.allclose(g["s"], c["s"], rtol=SUM_RTOL, atol=0)
+
+
+# ------------------------------------------------- pipeline and models
+MODEL_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 logits: the model tests'
+
+
+@pytest.mark.parametrize("dp_ranks", [1, 3, 8, 9])
+def test_pipeline_on_the_card_matches_the_cpu(cuda, dp_ranks):
+    """The corpus filter and shuffle through ``fused_scan_shuffle`` on the
+    card (register counters at up to 8 ranks, shared ones past 8): the
+    batches, bit for bit, and ``stats()`` of the same pipeline on the CPU;
+    one launch per partition drawn."""
+    from repro_torch.data.pipeline import (CorpusQuery, PushdownDataPipeline,
+                                           synth_corpus)
+    corpus = synth_corpus(num_partitions=6, docs_per_part=1000, doc_len=64,
+                          vocab=1000, hosts=2, seed=dp_ranks)
+    q = CorpusQuery(min_quality=float(corpus[0].quality[3]),
+                    domains=(1, 2, 4, 6), seq_len=64,
+                    global_batch=4 * dp_ranks, accum=2, dp_ranks=dp_ranks)
+    card = PushdownDataPipeline(corpus, q, device=cuda)
+    cpu = PushdownDataPipeline(corpus, q, device="cpu")
+    kernels.reset_launches()
+    for _ in range(12):
+        got = next(card)["tokens"]
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), next(cpu)["tokens"])
+    assert 1 <= fss.fused_scan_shuffle.launches <= 12
+    assert card.stats() == cpu.stats()
+
+
+def _reduced_pair(arch, device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.models.params import tree_map_specs
+    cfg = get_config(arch, reduced=True)
+    model = api.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(0), device)
+    cpu = transformer.Decoder(cfg, tree_map_specs(lambda t: t.cpu(),
+                                                  model.tree()))
+    return cfg, model, cpu
+
+
+GENERIC = ["olmo-1b", "qwen3-14b", "qwen1.5-4b", "deepseek-67b",
+           "qwen2-moe-a2.7b", "llama4-scout-17b-a16e", "llava-next-mistral-7b"]
+
+
+@pytest.mark.parametrize("arch", GENERIC)
+def test_reduced_models_on_the_card_match_the_cpu(cuda, arch):
+    """Forward logits and aux, the loss, and a decode step of the same
+    parameters on the card and on the CPU."""
+    from repro_torch.models import api
+    cfg, model, cpu = _reduced_pair(arch, cuda)
+    g = torch.Generator().manual_seed(1)
+    S = 129 if cfg.attn_unit else 64  # llama4: a 128-token ring prefix
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S), generator=g,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.num_patches, cfg.patch_dim),
+                                       generator=g).to(torch.bfloat16)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    lg, aux, _, _ = api.forward(model, cfg, on_card)
+    lc, auxc, _, _ = api.forward(cpu, cfg, batch)
+    assert lg.is_cuda
+    assert torch.allclose(lg.cpu(), lc, **MODEL_TOL)
+    assert torch.allclose(aux.cpu(), auxc, **MODEL_TOL)
+    assert torch.allclose(api.loss_fn(model, cfg, on_card).cpu(),
+                          api.loss_fn(cpu, cfg, batch), **MODEL_TOL)
+    pre = dict(on_card, tokens=on_card["tokens"][:, :S - 1])
+    pos = S - 1 + (cfg.num_patches if cfg.family == "vlm" else 0)
+    _, cache = api.build_decode_cache(model, cfg, pre, pos + 8)
+    dec, _ = api.decode_step(model, cfg, cache, pos,
+                             on_card["tokens"][:, S - 1:])
+    assert torch.allclose(dec[:, 0].cpu(), lc[:, -1], **MODEL_TOL)
+
+
+@pytest.mark.parametrize("causal_skip", [False, True])
+def test_blockwise_attention_on_the_card(cuda, causal_skip):
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    cfg = get_config("llama4-scout-17b-a16e", reduced=True)
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn((1, 2048, n, 16), generator=g).to(torch.bfloat16)
+               for n in (4, 2, 2))
+    got = attention.blockwise_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                        cfg, causal_skip=causal_skip)
+    assert torch.allclose(got.cpu().float(), attention.attention(
+        q, k, v, cfg).float(), **MODEL_TOL)
+
+
+def test_serving_engine_on_the_card(cuda):
+    """Both prefill branches on the card: each wave's last logits against
+    the CPU engine's, and every request its budget."""
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    cfg, model, cpu = _reduced_pair("olmo-1b", cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(20, 60, 6)]
+    scfg = ServeConfig(max_batch=4, max_len=128, prefill_chunk=16)
+    eng = ServingEngine(cfg, model, scfg)
+    reqs = [Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+    eng.serve(reqs)
+    assert eng.chunked_prefills == 1
+    assert all(len(r.out_tokens) == 8 for r in reqs)
+    ref = ServingEngine(cfg, cpu, scfg)
+    for wave in (prompts[:4], prompts[4:]):
+        P = max(len(p) for p in wave)
+        toks = torch.zeros((len(wave), P), dtype=torch.int32)
+        for b, p in enumerate(wave):
+            toks[b, P - len(p):] = torch.from_numpy(p)
+        got, _ = eng._prefill(toks.to(cuda), len(wave))
+        want, _ = ref._prefill(toks, len(wave))
+        assert torch.allclose(got.cpu(), want, **MODEL_TOL)

@@ -44,7 +44,12 @@ def test_the_rules_cover_the_cost_based_modules():
             "obs/trace.py", "core/result_cache.py",
             "core/faults.py", "obs/export.py", "core/arbitrator.py",
             "core/executor.py", "distributed/__init__.py",
-            "distributed/workers.py", "compiler/tensorize.py"} <= names
+            "distributed/workers.py", "compiler/tensorize.py",
+            "data/__init__.py", "data/pipeline.py", "configs/__init__.py",
+            "configs/base.py", "configs/olmo_1b.py", "models/__init__.py",
+            "models/flags.py", "models/params.py", "models/layers.py",
+            "models/attention.py", "models/moe.py", "models/transformer.py",
+            "models/api.py", "serve/__init__.py", "serve/engine.py"} <= names
 
 
 def _start_methods(path: Path):
@@ -99,13 +104,19 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_without_a_gpu_the_entry_points_raise(monkeypatch):
+    from repro_torch.configs import get_config
     from repro_torch.core.engine import EngineConfig, run_query
     from repro_torch.core.runtime import StreamQuery, run_stream
+    from repro_torch.data.pipeline import (CorpusQuery, PushdownDataPipeline,
+                                           synth_corpus)
     from repro_torch.device import resolve_device
+    from repro_torch.models import api
     from repro_torch.queryproc import queries, tpch
     from repro_torch.storage.catalog import Catalog
     cat = tpch.build_catalog(sf=0.1, num_nodes=1, rows_per_partition=2000,
                              device="cpu")
+    cfg = get_config("olmo-1b", reduced=True)
+    tree = api.init_params(cfg, device="cpu").tree()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device(None)
@@ -118,6 +129,12 @@ def test_without_a_gpu_the_entry_points_raise(monkeypatch):
     with pytest.raises(RuntimeError):
         run_stream([StreamQuery(queries.build_query("Q6"))], cat,
                    EngineConfig())
+    with pytest.raises(RuntimeError):
+        PushdownDataPipeline(synth_corpus(1, 8, 4), CorpusQuery())
+    with pytest.raises(RuntimeError):
+        api.init_params(cfg)
+    with pytest.raises(RuntimeError):
+        api.from_reference(cfg, tree)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
