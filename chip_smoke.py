@@ -151,9 +151,25 @@ GPU is present. Phases:
    forward; a ``ServingEngine`` (``SERVE``) over ``SERVE_REQUESTS``
    prompts of 96 to 320 pipeline tokens, ``SERVE_MAX_NEW`` new each: two
    chunked waves and a batched one; the chunked prefill's last logits
-   against the batched one's; decode steps timed; every generic
-   architecture's reduced config on the card against the CPU. Model
-   checks hold to ``MODEL_TOL``.
+   against the batched one's; decode steps timed. Then the other three
+   families at their published widths (``FAMILIES``), one at a time and
+   freed after: mamba2-2.7b (64 SSD layers), recurrentgemma-2b (8 x
+   (rec, rec, attn) + (rec, rec), window 2048, vocab 256,000) and
+   whisper-small (12 + 12 layers over 1500 frames), each with parameters
+   drawn on the card from the seed and ``count_params`` equal to the
+   published count: ``loss_fn`` on its batch, a prefill at its length
+   and a decode step against forward one token longer, held in fp32 on
+   the same parameters (bf16's errors, past the tolerance at these
+   depths as the reference's are, printed beside; mamba2's 2049 tokens
+   go through the chunk padding; recurrentgemma's 4096-token prefill
+   takes ``local_window_attention`` and leaves an aligned ring);
+   for mamba2 and recurrentgemma a ``ServingEngine`` (``SERVE``) over
+   ``FAMILY_REQUESTS`` prompts, one chunked wave and one batched, and
+   decode steps timed at B = 4 (whisper is not served, as the reference's
+   engine does not serve it). Token ids are drawn from the seed's
+   generator below each vocabulary (mamba2's 50,280 is below the corpus's
+   50,304). Last, all ten architectures' reduced configs on the card
+   against the CPU. Model checks hold to ``MODEL_TOL``.
 15. Prints each kernel's launches in phases 3 to 13 (all must be above 0,
    and on the tier ``predicate_bitmap``, ``fused_scan_agg`` and the two
    shuffle kernels inside the workers, ``grouped_agg`` in the parent's
@@ -231,6 +247,16 @@ SERVE_PROMPT = (96, 320)      # prompt lengths, cut from pipeline rows
 SERVE_MAX_NEW = 32
 MODEL_TOL = 2e-2              # rtol = atol on bf16 logits: the JAX
 #                               package's model tests' tolerance
+# the serve phase's other families at their published widths: the loss
+# batch (B, S) and the prefill length (a decode step follows at it)
+FAMILIES = {"mamba2-2.7b": dict(loss=(2, 2048), prefill=2048),
+            "recurrentgemma-2b": dict(loss=(1, 4096), prefill=4096),
+            "whisper-small": dict(loss=(2, 448), prefill=447)}
+PUBLISHED_PARAMS = {"mamba2-2.7b": 2_702_235_136,
+                    "recurrentgemma-2b": 2_894_528_000,
+                    "whisper-small": 277_940_736}
+FAMILY_REQUESTS = 6           # one chunked wave of 4, one batched of 2
+FAMILY_MAX_NEW = 16
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "fused_scan_agg": "src/repro/kernels/fused_scan_agg.py:56",
             "grouped_agg": "src/repro/kernels/grouped_agg.py:48",
@@ -2717,41 +2743,79 @@ def pipeline_phase(corpus_kw: dict, query_kw: dict, device, timer, sync,
 
 
 # --------------------------------------------------------- serve phase
+def held(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
+    """Max abs difference of two logit tensors, checked finite and within
+    ``MODEL_TOL`` (rtol = atol)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    err = float((a - b).abs().max())
+    check(bool(torch.isfinite(a).all()) and torch.allclose(
+        a, b, rtol=MODEL_TOL, atol=MODEL_TOL),
+          f"{what} differ (max abs {err:.3g})")
+    return err
+
+
+def synced(fn, sync):
+    """``fn()`` and its seconds, between two ``sync()`` calls."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def left_padded(prompts, device) -> torch.Tensor:
+    """Prompts right-aligned in one (B, P) int32 batch, left-padded with 0
+    as the engine pads a wave."""
+    P = max(len(p) for p in prompts)
+    toks = torch.zeros((len(prompts), P), dtype=torch.int32)
+    for b, p in enumerate(prompts):
+        toks[b, P - len(p):] = torch.from_numpy(p)
+    return toks.to(device)
+
+
+def decode_seconds(model, cfg, toks, max_len: int, steps: int, sync):
+    """Seconds of ``steps`` greedy decode steps at ``toks``'s batch, from a
+    decode cache of ``max_len`` built over ``toks``."""
+    from repro_torch.models import api
+    _, cache = api.build_decode_cache(model, cfg, {"tokens": toks}, max_len)
+    tok = toks[:, -1:]
+
+    def run():
+        nonlocal cache, tok
+        for i in range(steps):
+            logits, cache = api.decode_step(model, cfg, cache,
+                                            toks.shape[1] + i, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    return synced(run, sync)[1]
+
+
 def serve_phase(cfg, batches, device, sync, card: str = "no card",
-                seed: int = 0):
+                seed: int = 0, reduced: bool = False):
     """The generic decoder and the serving engine at ``cfg``'s width:
     parameters drawn on ``device``, ``loss_fn`` over every microbatch of
     the pipeline's ``batches``, the blocked prefill of one row with and
     without ``causal_skip`` against the materialized one, a decode step
     against forward, the ``ServingEngine`` over ``SERVE_REQUESTS``
     requests cut from pipeline rows (both prefill branches), the chunked
-    prefill's last logits against the batched one's on a wave, and every
-    generic architecture's reduced config on ``device`` against the CPU.
-    Tolerances: ``MODEL_TOL`` (rtol = atol), the JAX package's model
-    tests'."""
+    prefill's last logits against the batched one's on a wave; then
+    ``family_phase`` for each of ``FAMILIES`` (at the published width, or
+    the reduced config when ``reduced``), and all ten architectures'
+    reduced configs on ``device`` against the CPU. Tolerances:
+    ``MODEL_TOL`` (rtol = atol), the JAX package's model tests'."""
     import math
 
     import numpy as np
 
     from repro_torch.configs import ARCH_IDS, get_config
-    from repro_torch.models import api, transformer
+    from repro_torch.models import api
     from repro_torch.models.params import tree_map_specs
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
     def close(a, b, what):
-        a, b = a.float().cpu(), b.float().cpu()
-        err = float((a - b).abs().max())
-        check(torch.isfinite(a).all() and torch.allclose(
-            a, b, rtol=MODEL_TOL, atol=MODEL_TOL),
-              f"serve: {what} differ (max abs {err:.3g})")
-        return err
+        return held(a, b, f"serve: {what}")
 
     def timed(fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        return out, time.perf_counter() - t0
+        return synced(fn, sync)
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
@@ -2841,11 +2905,8 @@ def serve_phase(cfg, batches, device, sync, card: str = "no card",
 
     # the chunked prefill's last logits against the batched one's
     wave = prompts[:scfg.max_batch]
-    P = max(len(p) for p in wave)
-    toks = torch.zeros((len(wave), P), dtype=torch.int32)
-    for b, p in enumerate(wave):
-        toks[b, P - len(p):] = torch.from_numpy(p)
-    toks = toks.to(device)
+    toks = left_padded(wave, device)
+    P = toks.shape[1]
     batched = ServingEngine(cfg, model, dataclasses.replace(
         scfg, prefill_chunk=scfg.max_len))
     lb, cb = batched._prefill(toks, live_slots=len(wave))
@@ -2856,35 +2917,37 @@ def serve_phase(cfg, batches, device, sync, card: str = "no card",
     del lb, cb, lc, cc
 
     # decode steps at the engine's batch, from a prefilled wave
-    _, cache = api.build_decode_cache(model, cfg, {"tokens": toks},
-                                      scfg.max_len)
-    tok = toks[:, -1:]
-
-    def steps():
-        nonlocal cache, tok
-        for i in range(SERVE_MAX_NEW):
-            logits, cache = api.decode_step(model, cfg, cache, P + i, tok)
-            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-    _, s = timed(steps)
+    s = decode_seconds(model, cfg, toks, scfg.max_len, SERVE_MAX_NEW, sync)
     peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
             if on_card else "not measured")
     print(f"serve: decode {s / SERVE_MAX_NEW * 1e3:.2f} ms a step at "
           f"B={len(wave)}, cache {scfg.max_len}; peak "
           f"max_memory_allocated {peak}; {card}")
-    del model, cache, eng, batched
+    del model, eng, batched
+    if on_card:
+        torch.cuda.empty_cache()
 
-    # every generic architecture's reduced config: device against CPU
+    # the other families, one at a time
+    for arch, shapes in FAMILIES.items():
+        t0 = time.perf_counter()
+        family_phase(get_config(arch, reduced), shapes, device, sync, card,
+                     seed, 0 if reduced else PUBLISHED_PARAMS[arch])
+        print(f"family: {arch} in {time.perf_counter() - t0:.2f} s")
+
+    # every architecture's reduced config: device against CPU, the CPU
+    # copy made through the family's own module
     for arch in ARCH_IDS:
         small = get_config(arch, reduced=True)
-        if small.family not in ("dense", "moe", "vlm"):
-            continue
         m = api.init_params(small, torch.Generator(device=device)
                             .manual_seed(seed), device)
-        mcpu = transformer.Decoder(small, tree_map_specs(
-            lambda t: t.cpu(), m.tree()))
+        mcpu = type(m)(small, tree_map_specs(lambda t: t.cpu(), m.tree()))
         g = torch.Generator().manual_seed(seed)
         batch = {"tokens": torch.randint(0, small.vocab_size, (2, 64),
                                          generator=g, dtype=torch.int32)}
+        if small.family == "audio":
+            batch["frames"] = torch.randn(
+                (2, small.num_audio_frames, small.d_model),
+                generator=g).to(torch.bfloat16)
         if small.family == "vlm":
             batch["patches"] = torch.randn(
                 (2, small.num_patches, small.patch_dim),
@@ -2897,6 +2960,159 @@ def serve_phase(cfg, batches, device, sync, card: str = "no card",
         print(f"serve: {arch} reduced ({small.num_layers} layers, d_model "
               f"{small.d_model}) on {device} against the CPU: max abs err "
               f"{err:.3g}")
+
+
+def family_phase(cfg, shapes: dict, device, sync, card: str = "no card",
+                 seed: int = 0, published: int = 0) -> None:
+    """One of the ssm, hybrid and audio families at ``cfg``'s width, on
+    ``device``: parameters drawn from ``seed``, ``loss_fn`` on a
+    ``shapes["loss"]`` batch (a first call and a warm one), a prefill of
+    ``shapes["prefill"]`` tokens and a decode step held to forward one
+    token longer in fp32 (bf16's errors printed); for the families the
+    engine serves, a ``ServingEngine``
+    over ``FAMILY_REQUESTS`` prompts and ``FAMILY_MAX_NEW`` decode steps
+    timed at the engine's batch. Token ids (and whisper's frames) are
+    drawn from the seed's generator, below the vocabulary. ``published``
+    (when not 0) is the count ``count_params`` must give."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_map_specs
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    def close(a, b, what):
+        return held(a, b, f"{cfg.name}: {what}")
+
+    def timed(fn):
+        return synced(fn, sync)
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model, s = timed(lambda: api.init_params(cfg, gen, device))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == api.count_params(cfg) and
+          (not published or n_params == published),
+          f"{cfg.name}: {n_params} parameters, count_params "
+          f"{api.count_params(cfg)}, published {published or 'n/a'}")
+    print(f"family: {cfg.name} ({cfg.family}) {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n_params} "
+          f"parameters (count_params {api.count_params(cfg)}) drawn on "
+          f"{device} in {s:.2f} s; {card}")
+
+    def batch_of(B, S):
+        b = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+        if cfg.family == "audio":  # the frontend stub's frame embeddings
+            b["frames"] = torch.randn(
+                (B, cfg.num_audio_frames, cfg.d_model), generator=gen,
+                device=device).to(torch.bfloat16)
+        return b
+
+    B, S = shapes["loss"]
+    batch = batch_of(B, S)
+    runs = []
+    for _ in range(2):  # the first call, then a warm one
+        loss, s = timed(lambda: float(api.loss_fn(model, cfg, batch)))
+        check(math.isfinite(loss) and 0.5 * math.log(cfg.vocab_size)
+              < loss < 3.0 * math.log(cfg.vocab_size),
+              f"{cfg.name}: loss {loss} outside (0.5, 3) ln V")
+        runs.append((loss, s))
+    (loss, s), first = runs[1], runs[0][1]
+    print(f"family: {cfg.name} loss_fn on ({B}, {S}): loss {loss:.4f} "
+          f"(ln V = {math.log(cfg.vocab_size):.4f}), {s * 1e3:.1f} ms "
+          f"({B * S / s:.0f} tokens/s; first call {first * 1e3:.1f} ms); "
+          f"{card}")
+    del batch
+
+    # a prefill, then one decode step against forward over one more token,
+    # held in fp32 on the same parameters widened exactly. In bf16 two
+    # valid orders of the arithmetic (a decode step's matmuls at M = B
+    # rows, forward's at B x S; a prompt one token shorter) part by about
+    # an ulp a layer, and at these depths that adds up past the tolerance
+    # (on an NVIDIA H100 80GB HBM3 at 700 W: mamba2-2.7b's decode 0.0444
+    # off forward, whisper-small's prefill 0.0261), as the reference's
+    # bf16 does (tests/test_torch_recurrent.py::
+    # test_bf16_noise_at_depth_is_the_references): the bf16 run's errors
+    # are printed beside the fp32 forward's
+    P = shapes["prefill"]
+    row = batch_of(1 if cfg.family == "hybrid" else 2, P + 1)
+    pre = dict(row, tokens=row["tokens"][:, :P])
+    (last, cache), s_pre = timed(lambda: api.build_decode_cache(
+        model, cfg, pre, P + 8))
+    (dec, _), s_dec = timed(lambda: api.decode_step(
+        model, cfg, cache, P, row["tokens"][:, P:]))
+    (full, _, _, _), s_full = timed(lambda: api.forward(model, cfg, row))
+    del cache
+    wide = type(model)(cfg, tree_map_specs(lambda t: t.float(),
+                                           model.tree()))
+    row32 = {k: (v.float() if v.is_floating_point() else v)
+             for k, v in row.items()}
+    pre32 = dict(row32, tokens=row32["tokens"][:, :P])
+    last32, cache32 = api.build_decode_cache(wide, cfg, pre32, P + 8)
+    dec32, _ = api.decode_step(wide, cfg, cache32, P, row32["tokens"][:, P:])
+    full32 = api.forward(wide, cfg, row32)[0]
+    err32 = (close(last32, full32[:, -2], "fp32 prefill's last logits and "
+                   "forward"),
+             close(dec32[:, 0], full32[:, -1], "fp32 decode step and forward"))
+    e = lambda a, b: float((a.float() - b).abs().max())  # noqa: E731
+    print(f"family: {cfg.name} prefill of {P} tokens at B="
+          f"{row['tokens'].shape[0]} {s_pre * 1e3:.1f} ms, a decode step "
+          f"{s_dec * 1e3:.1f} ms, forward over {P + 1} {s_full * 1e3:.1f} "
+          f"ms; fp32 max abs err {err32[0]:.3g} (prefill), {err32[1]:.3g} "
+          f"(decode) against forward, tolerance {MODEL_TOL}; bf16 "
+          f"{e(last, full[:, -2]):.3g} (prefill), "
+          f"{e(dec[:, 0], full[:, -1]):.3g} (decode) against bf16 "
+          f"forward, and against the fp32 forward "
+          f"{e(full[:, -1], full32[:, -1]):.3g} (forward), "
+          f"{e(dec[:, 0], full32[:, -1]):.3g} (decode); {card}")
+    del last, dec, full, row, pre, wide, row32, pre32, last32, cache32
+    del dec32, full32
+
+    if cfg.family != "audio":  # the engine serves mamba2 and recurrentgemma
+        scfg = ServeConfig(**SERVE)
+        lens = np.random.default_rng(seed).integers(
+            SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, FAMILY_REQUESTS)
+        prompts = [torch.randint(1, cfg.vocab_size, (int(n),), generator=gen,
+                                 device=device, dtype=torch.int32
+                                 ).cpu().numpy() for n in lens]
+        reqs = [Request(rid=i, prompt=p, max_new=FAMILY_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        eng = ServingEngine(cfg, model, scfg)
+        _, s = timed(lambda: eng.serve(reqs))
+        waves = -(-FAMILY_REQUESTS // scfg.max_batch)
+        check(all(len(r.out_tokens) == FAMILY_MAX_NEW and r.done
+                  for r in reqs), f"{cfg.name}: a request missed its budget")
+        check(all(0 <= t < cfg.vocab_size for r in reqs
+                  for t in r.out_tokens),
+              f"{cfg.name}: a token outside the vocabulary")
+        check(0 < eng.chunked_prefills < waves,
+              f"{cfg.name}: {eng.chunked_prefills} chunked prefills of "
+              f"{waves} waves, not both branches")
+        out_tok = sum(len(r.out_tokens) for r in reqs)
+        print(f"family: {cfg.name} engine {FAMILY_REQUESTS} requests "
+              f"(prompts {min(lens)}..{max(lens)} tokens, {FAMILY_MAX_NEW} "
+              f"new each) in {waves} waves, {eng.chunked_prefills} chunked: "
+              f"{out_tok} tokens in {s:.3f} s, {out_tok / s:.1f} served "
+              f"tokens/s; {card}")
+
+        # decode steps at the engine's batch, from a prefilled wave
+        toks = left_padded(prompts[:scfg.max_batch], device)
+        s = decode_seconds(model, cfg, toks, scfg.max_len, FAMILY_MAX_NEW,
+                           sync)
+        print(f"family: {cfg.name} decode {s / FAMILY_MAX_NEW * 1e3:.2f} ms "
+              f"a step at B={toks.shape[0]}; {card}")
+        del eng
+    peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if on_card else "not measured")
+    print(f"family: {cfg.name} peak max_memory_allocated {peak}; {card}")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
 
 
 def print_records(recs, names) -> None:

@@ -3,13 +3,15 @@
     PYTHONPATH=src python examples/serve_batch_torch.py [--arch olmo-1b]
     PYTHONPATH=src python examples/serve_batch_torch.py --device cpu
 
-Builds a reduced-config model of one of the generic decoder's
-architectures (dense, MoE, VLM; random weights, since the point is the
+Builds a reduced-config model of one of the architectures the engine
+serves (the generic decoder's dense, MoE and VLM families, mamba2's SSM
+and recurrentgemma's hybrid; random weights, since the point is the
 serving machinery: left-padded batched prefill, chunked prefill when a
-wave is large, the KV-cache layouts of linear and chunked-local layers)
-and serves a queue of requests with ``repro_torch.serve.engine``. It runs
-on the GPU unless given ``--device cpu``. The families the port does not
-have yet (ssm, hybrid, audio) are not offered.
+wave is large, the KV-cache layouts of linear and chunked-local layers,
+an SSM's state, a sliding-window ring) and serves a queue of requests with
+``repro_torch.serve.engine``. It runs on the GPU unless given ``--device
+cpu``. Whisper is not offered: the engine has no audio frames to feed it,
+as the JAX package's engine has none.
 """
 import argparse
 import time
@@ -23,10 +25,10 @@ from repro_torch.serve.engine import ServeConfig, ServingEngine
 
 
 def main():
-    generic = [a for a in ARCH_IDS if get_config(a, reduced=True).family
-               in ("dense", "moe", "vlm")]
+    served = [a for a in ARCH_IDS
+              if get_config(a, reduced=True).family != "audio"]
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo-1b", choices=generic)
+    ap.add_argument("--arch", default="olmo-1b", choices=served)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--device", default=None,

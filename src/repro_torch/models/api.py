@@ -1,37 +1,47 @@
 """Unified model API, dispatched by family (port of ``repro.models.api``).
 
 - ``init_specs(cfg)``                     parameter ParamSpec tree
-- ``init_params(cfg, generator, device)`` a ``transformer.Decoder``
+- ``init_params(cfg, generator, device)`` the family's model module
 - ``from_reference(cfg, tree, device)``   the reference's parameters
 - ``forward(params, cfg, batch, ...)``    -> (logits, aux, loss_mask, cache?)
 - ``loss_fn(params, cfg, batch, ...)``    next-token CE (+ MoE aux)
 - ``cache_specs / prefill / decode_step / build_decode_cache`` serving
 - ``count_params(cfg)``                   analytic parameter count
 
-The port has the generic decoder's families (``dense``, ``moe``, ``vlm``).
-``ssm``, ``hybrid`` and ``audio`` (mamba2, recurrentgemma, whisper) raise
-``NotImplementedError``: they are ROADMAP queue 1's next models item.
+Families: ``dense``, ``moe`` and ``vlm`` run the generic decoder
+(``transformer.Decoder``), ``ssm`` mamba2 (``mamba_model.MambaLM``),
+``hybrid`` recurrentgemma (``hybrid.HybridLM``) and ``audio`` whisper
+(``whisper.EncoderDecoder``, whose batches carry ``frames``).
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid, mamba_model, transformer, whisper
 from repro_torch.models import params as P
-from repro_torch.models import transformer
 
 _GENERIC = ("dense", "moe", "vlm")
+# family -> (module, its parameter module)
+_FAMILIES = {"ssm": (mamba_model, mamba_model.MambaLM),
+             "hybrid": (hybrid, hybrid.HybridLM),
+             "audio": (whisper, whisper.EncoderDecoder)}
+_FAMILIES.update({f: (transformer, transformer.Decoder) for f in _GENERIC})
+
+
+def _family(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r} "
+                         f"({cfg.name})")
+    return _FAMILIES[cfg.family]
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family not in _GENERIC:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet: "
-            "ROADMAP queue 1, the ssm/rglru/hybrid/mamba_model/whisper item")
-    return transformer
+    return _family(cfg)[0]
 
 
 def init_specs(cfg: ModelConfig):
@@ -40,24 +50,24 @@ def init_specs(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: Optional[Union[str, torch.device]] = None
-                ) -> transformer.Decoder:
+                ) -> nn.Module:
     """Random parameters with the reference's distributions, drawn on
     ``device`` (the GPU by default) from ``generator`` (seed 0 when
-    None; it must live on ``device``)."""
+    None; it must live on ``device``), as the family's module."""
     dev = resolve_device(device)
     specs = init_specs(cfg)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return transformer.Decoder(cfg, P.materialize(specs, generator, dev))
+    return _family(cfg)[1](cfg, P.materialize(specs, generator, dev))
 
 
 def from_reference(cfg: ModelConfig, tree,
                    device: Optional[Union[str, torch.device]] = None
-                   ) -> transformer.Decoder:
+                   ) -> nn.Module:
     """The reference's parameter tree (numpy arrays) as the port's
     module, bit for bit."""
-    return _mod(cfg).Decoder(cfg, P.from_reference(tree,
-                                                   resolve_device(device)))
+    return _family(cfg)[1](cfg, P.from_reference(tree,
+                                                 resolve_device(device)))
 
 
 def forward(params, cfg: ModelConfig, batch, **kw):
@@ -113,8 +123,28 @@ def _pad_dim(x: torch.Tensor, dim: int, target: int) -> torch.Tensor:
 def build_decode_cache(params, cfg: ModelConfig, batch, max_len: int,
                        *, blockwise: bool = True):
     """Prefill the prompt and lay the collected KV out as a decode cache of
-    capacity ``max_len`` (linear caches padded, chunk caches ring-ified)."""
-    last_logits, (k, v) = prefill(params, cfg, batch, blockwise=blockwise)
+    capacity ``max_len`` (linear caches padded, chunk caches ring-ified;
+    an SSM's state as it is)."""
+    last_logits, cache = prefill(params, cfg, batch, blockwise=blockwise)
+    fam = cfg.family
+    if fam == "ssm":
+        return last_logits, cache
+    if fam == "audio":
+        return last_logits, dict(cache, k=_pad_dim(cache["k"], 2, max_len),
+                                 v=_pad_dim(cache["v"], 2, max_len))
+    if fam == "hybrid":
+        w = min(cfg.local_window, max_len)
+
+        def fix(tree):
+            # as the reference: dim 2 of every attention cache, which for
+            # an unstacked tail block is the KV axis (no config has an
+            # attention block in its tail)
+            return {name: ({"k": _pad_dim(c["k"], 2, w),
+                            "v": _pad_dim(c["v"], 2, w)} if "k" in c else c)
+                    for name, c in tree.items()}
+        return last_logits, {"units": fix(cache["units"]),
+                             "tail": fix(cache["tail"])}
+    k, v = cache
     if cfg.attn_unit:  # llama4-style: (k, v) each (U, ul, B, S, KV, hd)
         loc = [j for j, t in enumerate(cfg.attn_unit) if t == "local"]
         glo = [j for j, t in enumerate(cfg.attn_unit) if t != "local"]

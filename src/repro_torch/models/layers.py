@@ -3,12 +3,16 @@
 
 All norms and RoPE compute in fp32 and cast back; params live in bf16.
 The reference's sharding constraints (``cs``) do nothing on one device and
-are dropped.
+are dropped. ``silu`` and ``gelu_tanh`` compute as ``jax.nn.silu`` and
+``jax.nn.gelu`` do in bf16: one rounding after each op of their formulas
+(``F.silu`` and ``F.gelu`` round once, which moves about a third of bf16
+outputs by one ulp).
 """
 from __future__ import annotations
 
+import math
+
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import p
@@ -75,6 +79,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+# ----------------------------------------------------------------- activations
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x), the sigmoid as 1 / (1 + exp(-x)), each op in
+    ``x``'s dtype (XLA's expansion of ``jax.nn.silu``)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of GELU (``jax.nn.gelu``'s default), each op in
+    ``x``'s dtype with the constants rounded to it."""
+    c = torch.full((), math.sqrt(2 / math.pi), dtype=torch.float32,
+                   device=x.device).to(x.dtype)
+    k = torch.full((), 0.044715, dtype=torch.float32,
+                   device=x.device).to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 # ----------------------------------------------------------------- mlp
 def mlp_specs(cfg: ModelConfig, stack: tuple = (), d_ff: int | None = None):
     d_ff = d_ff if d_ff is not None else cfg.d_ff
@@ -93,8 +114,8 @@ def mlp_specs(cfg: ModelConfig, stack: tuple = (), d_ff: int | None = None):
 
 def apply_mlp(x: torch.Tensor, prm, cfg: ModelConfig) -> torch.Tensor:
     if "w_in" in prm:  # gelu: jax.nn.gelu's default is the tanh form
-        return F.gelu(x @ prm["w_in"], approximate="tanh") @ prm["w_out"]
-    g = F.silu(x @ prm["w_gate"])
+        return gelu_tanh(x @ prm["w_in"]) @ prm["w_out"]
+    g = silu(x @ prm["w_gate"])
     return (g * (x @ prm["w_up"])) @ prm["w_out"]
 
 

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_mlp, mlp_specs
+from repro_torch.models.layers import apply_mlp, mlp_specs, silu
 from repro_torch.models.params import p
 
 
@@ -69,7 +69,7 @@ def apply_moe(x: torch.Tensor, prm, cfg: ModelConfig):
     buf.index_put_((flat_e, pos_c), x_disp, accumulate=True)
 
     # expert FFN (SwiGLU), batched over experts
-    g = F.silu(torch.einsum("ecd,edf->ecf", buf, prm["w_gate"]))
+    g = silu(torch.einsum("ecd,edf->ecf", buf, prm["w_gate"]))
     u = torch.einsum("ecd,edf->ecf", buf, prm["w_up"])
     h = torch.einsum("ecf,efd->ecd", g * u, prm["w_out"])  # (E, C, d)
 

@@ -6,13 +6,15 @@ stacked on leading axes as in the reference, so a tree has the reference's
 layout leaf for leaf:
 
 - ``materialize(specs, generator, device)``: tensors drawn with the
-  reference's distributions (fan-in scaled normal, ones, zeros);
+  reference's distributions (fan-in scaled normal, ones, zeros, mamba2's
+  ``A_log`` as the log of a uniform draw on [1, 16]);
 - ``from_reference(tree, device)``: the reference's parameters, given as
   numpy arrays, as tensors (bf16 carried over bit for bit);
 - ``count`` / ``bytes_of``: sizes without allocating.
 
-``repro_torch.models.transformer.Decoder`` unstacks such a tree into its
-blocks.
+Each family's model module (``transformer.Decoder``,
+``mamba_model.MambaLM``, ``hybrid.HybridLM``, ``whisper.EncoderDecoder``)
+unstacks such a tree into its layers.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]  # logical axis name per dim
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a
     scale: float = 0.02
 
 
@@ -59,9 +61,12 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ssm_a":  # A_log in [log 1, log 16] as in mamba2
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device) * 15.0 + 1.0
+        return torch.log(u).to(spec.dtype)
     if spec.init != "normal":
-        raise ValueError(f"initializer {spec.init!r} belongs to a family "
-                         "the port does not have yet")
+        raise ValueError(f"unknown initializer {spec.init!r}")
     # fan-in scaled normal for >=2D, plain normal otherwise
     std = spec.scale
     if len(spec.shape) >= 2:

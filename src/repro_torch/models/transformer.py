@@ -14,7 +14,6 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -24,8 +23,8 @@ from repro_torch.models.attention import (attention, attn_out, attn_specs,
                                           local_chunk_attention,
                                           local_window_attention, qkv_proj)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_specs,
-                                       embed_tokens, lm_logits, mlp_specs,
-                                       norm_specs)
+                                       embed_tokens, gelu_tanh, lm_logits,
+                                       mlp_specs, norm_specs)
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import p, tree_map_specs
 
@@ -109,11 +108,17 @@ class ParamTree(nn.Module):
                     else self[n].data) for n in self._names}
 
 
-def _stack(trees: List[Dict]) -> Dict:
+def stack_trees(trees: List[Dict]) -> Dict:
+    """Trees of equal layout stacked leaf by leaf on a new leading axis."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def unstack_tree(tree: Dict, idx) -> Dict:
+    """Entry ``idx`` of every leaf's leading axes."""
+    return tree_map_specs(lambda t: t[idx], tree)
 
 
 class Block(ParamTree):
@@ -139,8 +144,7 @@ class Decoder(nn.Module):
         for u in range(U):
             for j in range(ul):
                 idx = (u,) if ul == 1 else (u, j)
-                blocks.append(Block(tree_map_specs(lambda t: t[idx],
-                                                   tree["layers"]),
+                blocks.append(Block(unstack_tree(tree["layers"], idx),
                                     *_attn_kind(cfg, j)))
         self.blocks = nn.ModuleList(blocks)
         self.projector = (ParamTree(tree["projector"])
@@ -155,10 +159,11 @@ class Decoder(nn.Module):
         U, ul = num_units(self.cfg), unit_len(self.cfg)
         layers = [b.tree() for b in self.blocks]
         if ul > 1:
-            layers = [_stack(layers[u * ul:(u + 1) * ul]) for u in range(U)]
+            layers = [stack_trees(layers[u * ul:(u + 1) * ul])
+                      for u in range(U)]
         out = {"embed": self.embed.tree(),
                "final_norm": self.final_norm.tree(),
-               "layers": _stack(layers)}
+               "layers": stack_trees(layers)}
         if self.projector is not None:
             out["projector"] = self.projector.tree()
         return out
@@ -201,7 +206,7 @@ def _prefix_embed(params: Decoder, cfg: ModelConfig, batch):
     if cfg.family == "vlm" and "patches" in batch:
         pj = params.projector
         patches = torch.as_tensor(batch["patches"], device=dev)
-        pe = F.gelu(patches @ pj["w1"], approximate="tanh") @ pj["w2"]
+        pe = gelu_tanh(patches @ pj["w1"]) @ pj["w2"]
         x = torch.cat([pe.to(x.dtype), x], dim=1)
         mask = torch.cat([torch.zeros(pe.shape[:2], dtype=torch.float32,
                                       device=dev), mask], dim=1)

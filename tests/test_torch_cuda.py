@@ -1289,31 +1289,40 @@ def test_pipeline_on_the_card_matches_the_cpu(cuda, dp_ranks):
 
 
 def _reduced_pair(arch, device):
+    """A reduced config's parameters drawn on ``device`` and a CPU copy
+    made through the family's own module."""
     from repro_torch.configs import get_config
-    from repro_torch.models import api, transformer
+    from repro_torch.models import api
     from repro_torch.models.params import tree_map_specs
     cfg = get_config(arch, reduced=True)
     model = api.init_params(cfg, torch.Generator(device=device)
                             .manual_seed(0), device)
-    cpu = transformer.Decoder(cfg, tree_map_specs(lambda t: t.cpu(),
-                                                  model.tree()))
+    cpu = type(model)(cfg, tree_map_specs(lambda t: t.cpu(), model.tree()))
     return cfg, model, cpu
 
 
-GENERIC = ["olmo-1b", "qwen3-14b", "qwen1.5-4b", "deepseek-67b",
-           "qwen2-moe-a2.7b", "llama4-scout-17b-a16e", "llava-next-mistral-7b"]
+ARCHS = ["olmo-1b", "qwen3-14b", "qwen1.5-4b", "deepseek-67b",
+         "qwen2-moe-a2.7b", "llama4-scout-17b-a16e", "llava-next-mistral-7b",
+         "mamba2-2.7b", "recurrentgemma-2b", "whisper-small"]
 
 
-@pytest.mark.parametrize("arch", GENERIC)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_models_on_the_card_match_the_cpu(cuda, arch):
     """Forward logits and aux, the loss, and a decode step of the same
     parameters on the card and on the CPU."""
     from repro_torch.models import api
     cfg, model, cpu = _reduced_pair(arch, cuda)
     g = torch.Generator().manual_seed(1)
-    S = 129 if cfg.attn_unit else 64  # llama4: a 128-token ring prefix
+    # llama4: a 128-token ring prefix; recurrentgemma: a 64-token prefix,
+    # a multiple of its 32-wide window (an aligned ring); mamba2: a
+    # 63-token prefix, padded to two chunks
+    S = 129 if cfg.attn_unit else 65 if cfg.family == "hybrid" else 64
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S), generator=g,
                                      dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(
+            (2, cfg.num_audio_frames, cfg.d_model),
+            generator=g).to(torch.bfloat16)
     if cfg.family == "vlm":
         batch["patches"] = torch.randn((2, cfg.num_patches, cfg.patch_dim),
                                        generator=g).to(torch.bfloat16)
@@ -1345,6 +1354,50 @@ def test_blockwise_attention_on_the_card(cuda, causal_skip):
                                         cfg, causal_skip=causal_skip)
     assert torch.allclose(got.cpu().float(), attention.attention(
         q, k, v, cfg).float(), **MODEL_TOL)
+
+
+def test_rglru_scan_at_4096_on_the_card(cuda):
+    """The log-depth scan at recurrentgemma's prefill length on the card,
+    held to the sequential recurrence in fp64."""
+    from repro_torch.models.rglru import linear_scan
+    g = torch.Generator().manual_seed(4)
+    T = 4096
+    a = torch.rand((2, T, 256), generator=g) * 0.2 + 0.8  # long memory
+    b = torch.randn((2, T, 256), generator=g)
+    got = linear_scan(a.to(cuda), b.to(cuda))
+    assert got.is_cuda and got.dtype == torch.float32
+    h = torch.zeros((2, 256), dtype=torch.float64)
+    want = torch.empty((2, T, 256), dtype=torch.float64)
+    for t in range(T):
+        h = a[:, t].double() * h + b[:, t].double()
+        want[:, t] = h
+    assert torch.allclose(got.cpu().double(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_recurrent_serving_engine_on_the_card(cuda, arch):
+    """Both prefill branches of the two recurrent families on the card,
+    each wave's last logits against the CPU engine's."""
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+    cfg, model, cpu = _reduced_pair(arch, cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(20, 60, 6)]
+    scfg = ServeConfig(max_batch=4, max_len=128, prefill_chunk=16)
+    eng = ServingEngine(cfg, model, scfg)
+    reqs = [Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+    eng.serve(reqs)
+    assert eng.chunked_prefills == 1
+    assert all(len(r.out_tokens) == 8 for r in reqs)
+    ref = ServingEngine(cfg, cpu, scfg)
+    for wave in (prompts[:4], prompts[4:]):
+        P = max(len(p) for p in wave)
+        toks = torch.zeros((len(wave), P), dtype=torch.int32)
+        for b, p in enumerate(wave):
+            toks[b, P - len(p):] = torch.from_numpy(p)
+        got, _ = eng._prefill(toks.to(cuda), len(wave))
+        want, _ = ref._prefill(toks, len(wave))
+        assert torch.allclose(got.cpu(), want, **MODEL_TOL)
 
 
 def test_serving_engine_on_the_card(cuda):

@@ -1,9 +1,11 @@
 """The port's serving engine, on the CPU: the five checks of
-``tests/test_serve.py`` on the generic families (generate shapes,
-per-request budgets, the prefix budget, chunked-prefill equivalence and
-decode against forward), and each prefill branch's logits against the
-JAX package's engine on carried-over parameters (rtol = atol = 2e-2, the
-model tests' tolerance).
+``tests/test_serve.py`` on the generic families and the two recurrent ones
+it serves (mamba2, recurrentgemma: generate shapes, per-request budgets,
+the prefix budget, chunked-prefill equivalence and decode against
+forward), and each prefill branch's logits and cache against the JAX
+package's engine on carried-over parameters (rtol = atol = 2e-2, the model
+tests' tolerance). Whisper is not served, as the reference's engine does
+not serve it (its test skips audio).
 """
 import jax
 import numpy as np
@@ -21,6 +23,15 @@ from repro_torch.serve.engine import (AdmissionPolicy, Request, ServeConfig,
 TOL = dict(rtol=2e-2, atol=2e-2)
 GENERIC = [a for a in ARCH_IDS
            if get_config(a, reduced=True).family in ("dense", "moe", "vlm")]
+SERVED = GENERIC + ["mamba2-2.7b", "recurrentgemma-2b"]
+
+
+def sorted_leaves(tree):
+    """A nested dict's leaves in key order, as ``jax.tree_util`` lists
+    them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    return [tree]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -38,7 +49,7 @@ def _params(arch, seed):
                            torch.Generator().manual_seed(seed), "cpu")
 
 
-@pytest.mark.parametrize("arch", GENERIC)
+@pytest.mark.parametrize("arch", SERVED)
 def test_generate_shapes(arch):
     cfg = get_config(arch, reduced=True)
     eng = ServingEngine(cfg, _params(arch, 0),
@@ -82,7 +93,7 @@ def test_prefix_budget_matches_shared_generate():
     assert short == full[:3]
 
 
-@pytest.mark.parametrize("arch", GENERIC)
+@pytest.mark.parametrize("arch", SERVED)
 def test_chunked_prefill_equivalent_and_wired(arch):
     """The chunked branch runs when the policy says so and gives the
     batched prefill's greedy tokens; a small wave stays batched even with
@@ -133,7 +144,7 @@ def test_decode_matches_forward():
                                full_logits[0, -1].numpy(), atol=2e-2)
 
 
-@pytest.mark.parametrize("arch", GENERIC)
+@pytest.mark.parametrize("arch", SERVED)
 @pytest.mark.parametrize("prefill_chunk", [8, 64])
 def test_prefill_logits_match_the_reference_engine(arch, prefill_chunk):
     """Each prefill branch (chunk 8: chunked; 64: batched) on ragged
@@ -157,9 +168,11 @@ def test_prefill_logits_match_the_reference_engine(arch, prefill_chunk):
         (prefill_chunk < P)
     np.testing.assert_allclose(last.numpy(), np.asarray(rlast, np.float32),
                                **TOL)
-    for k, v in cache.items():
+    flat, rflat = sorted_leaves(cache), jax.tree_util.tree_leaves(rcache)
+    assert [tuple(v.shape) for v in flat] == [a.shape for a in rflat]
+    for v, want in zip(flat, rflat):
         np.testing.assert_allclose(v.float().numpy(),
-                                   np.asarray(rcache[k], np.float32), **TOL)
+                                   np.asarray(want, np.float32), **TOL)
 
 
 def test_the_engine_runs_where_its_parameters_live():
@@ -173,7 +186,11 @@ def test_chip_smoke_pipeline_and_serve_phases_run_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s pipeline and serve phases at a small size on the
     CPU: 8 partitions of 256 documents of 64 tokens with the card run's
     query, olmo-1b's reduced config, and an engine of the card run's
-    shape at a quarter of its lengths (two chunked waves, one batched)."""
+    shape at a quarter of its lengths (two chunked waves, one batched);
+    then the family sub-phases on the reduced mamba2, recurrentgemma and
+    whisper configs (mamba2's prefill of 45 tokens pads to two chunks,
+    recurrentgemma's of 64 takes ``local_window_attention``) and all ten
+    reduced configs against the CPU."""
     import importlib.util
     import time
     from pathlib import Path
@@ -199,5 +216,9 @@ def test_chip_smoke_pipeline_and_serve_phases_run_on_the_cpu(monkeypatch):
                                              prefill_chunk=16))
     monkeypatch.setattr(smoke, "SERVE_PROMPT", (24, 64))
     monkeypatch.setattr(smoke, "SERVE_MAX_NEW", 8)
+    monkeypatch.setattr(smoke, "FAMILIES", {
+        "mamba2-2.7b": dict(loss=(2, 45), prefill=45),
+        "recurrentgemma-2b": dict(loss=(1, 64), prefill=64),
+        "whisper-small": dict(loss=(2, 16), prefill=15)})
     smoke.serve_phase(get_config(smoke.SERVE_ARCH, reduced=True), first,
-                      "cpu", lambda: None)
+                      "cpu", lambda: None, reduced=True)
