@@ -170,7 +170,20 @@ GPU is present. Phases:
    generator below each vocabulary (mamba2's 50,280 is below the corpus's
    50,304). Last, all ten architectures' reduced configs on the card
    against the CPU. Model checks hold to ``MODEL_TOL``.
-15. Prints each kernel's launches in phases 3 to 13 (all must be above 0,
+15. Train: ``TRAIN_ARCH`` (olmo-1b) at its published width and depth,
+   parameters drawn from the seed, fed by the pipeline over the same
+   corpus with ``TRAIN_QUERY`` (4 DP ranks, batches (2, 4, 2048); every
+   partition's ``fused_scan_shuffle`` launch at P = 4 held bitwise):
+   ``make_host_train_step(remat=True)`` for 4 steps on the first three
+   batches and the first again, whose loss must fall; ms a step, tokens/s,
+   each step's loss, ``grad_norm`` and ``lr``, peak memory. Then a central
+   difference of ``loss_fn`` along a random unit direction against
+   autograd's ``<grad, d>`` on the trained parameters widened to fp32
+   (``grad_check``; the bf16 gradient's distance printed), and at the same
+   width cut to ``RESUME_LAYERS`` layers ``train`` straight through 8
+   steps against 4 saved and resumed to 8 (final losses within
+   ``RESUME_TOL``), the saved state restored bit for bit.
+16. Prints each kernel's launches in phases 3 to 15 (all must be above 0,
    and on the tier ``predicate_bitmap``, ``fused_scan_agg`` and the two
    shuffle kernels inside the workers, ``grouped_agg`` in the parent's
    residuals), the per-kernel JSON line and, last, the ``{"ok": true,
@@ -217,8 +230,12 @@ CACHE_BUDGET = 2 << 30        # holds one query's pushed results (Q8 eager
 CHAOS_SPEC = "crash:0.25,timeout:0.15,transient:0.2,straggler:0.2:0.001"
 STREAM_GAP_S = 0.004          # arrivals of the stream phase's queries
 HEDGE_DELAY_S = 0.002         # the chaos stream's fixed hedge delay
-CONTROL_RUNS = 16             # uncached runs that may show a query's f64
-#                               sums moving before "rows" is accepted
+CONTROL_RUNS = 256            # uncached runs that may show a query's f64
+#                               sums moving before "rows" is accepted: Q6's
+#                               result moves in about 1 run of 15 (2
+#                               distinct results in 30 runs, and 3 of 30
+#                               warm flips, profile_kernels.py jitter), so
+#                               16 runs missed it about once in three
 POOLED_VALUES = 512           # multitable.DOMAIN_MAX_VALUES, the longest
 #                               In list the cost-based lowering makes
 TIER_CONFIGS = (("eager", 1.0), ("adaptive", 1.0), ("adaptive", 0.1))
@@ -257,6 +274,25 @@ PUBLISHED_PARAMS = {"mamba2-2.7b": 2_702_235_136,
                     "whisper-small": 277_940_736}
 FAMILY_REQUESTS = 6           # one chunked wave of 4, one batched of 2
 FAMILY_MAX_NEW = 16
+# the train phase: olmo-1b at its published width and depth (1,176,764,416
+# parameters) trained on the pipeline's corpus in batches (accum 2, mb 4,
+# S 2048) for 4 DP ranks with remat; the first batch comes back at step 4
+TRAIN_ARCH = "olmo-1b"
+TRAIN_PARAMS = 1_176_764_416
+TRAIN_QUERY = dict(PIPE_QUERY, global_batch=8, accum=2, dp_ranks=4)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=4)
+TRAIN_ORDER = (0, 1, 2, 0)    # the batch each step takes
+GRAD_SHAPE = (1, 512)         # the directional-derivative check's batch
+GRAD_STEP = 2e-3              # its central difference's step h along a unit
+#                               direction, as a share of the parameters' norm
+#                               (h ~ 0.9 for olmo-1b, ~3e-5 an entry)
+GRAD_ULPS = 4                 # fp32 rounding allowed in the loss at a point
+GRAD_REL = 1e-3               # the fp32 gradient's own rounding and the
+#                               step's h^2 truncation, relative
+RESUME_LAYERS = 2             # the resume check's depth cut (a full-depth
+#                               save writes ~12 GB)
+RESUME_STEPS = (4, 8)         # saved at the first, resumed to the second
+RESUME_TOL = 5e-2             # tests/test_substrate.py's resume tolerance
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "fused_scan_agg": "src/repro/kernels/fused_scan_agg.py:56",
             "grouped_agg": "src/repro/kernels/grouped_agg.py:48",
@@ -1897,19 +1933,28 @@ def cache_phase(cat, sync):
             run_query, q6, cat, cfg(None, "eager", 0.01)).result)
         flips = [drive(run_query, q6, cat, cfg(cache, mode, 0.01))
                  for mode in ("adaptive", "eager", "adaptive")]
+        t_warm = host_s["done"]
         n = len(flips[0].outcomes)
         check(flips[0].n_admitted == 0 and flips[0].n_pushed_back == n,
               f"warm flip: cold adaptive admitted {flips[0].n_admitted}")
         how = [jit.holds(f.result) for f in flips]
-        check(flips[2].n_admitted == n == flips[2].cache_hits and all(how),
+        # every partition of the warm run is served from the eager run's
+        # entries, and the residual adds them in one order: the same bits
+        served = identical(flips[1].result, flips[2].result)
+        check(flips[2].n_admitted == n == flips[2].cache_hits and all(how)
+              and served,
               f"warm flip: warm adaptive admitted {flips[2].n_admitted}, "
-              f"served {flips[2].cache_hits} of {n}, results {how} ({jit})")
+              f"served {flips[2].cache_hits} of {n}, results {how} against "
+              f"the uncached run "
+              f"({[agree(base.result, f.result) for f in flips]}, {jit}), "
+              f"warm {'equal to' if served else 'differs from'} the eager "
+              f"fill")
         print(f"cache warm flip: Q6 at storage_power 0.01: cold adaptive "
               f"{flips[0].n_admitted}/{flips[0].n_pushed_back}, warm "
               f"adaptive {flips[2].n_admitted}/{flips[2].n_pushed_back} "
               f"with {flips[2].cache_hits} served; walls (single runs) "
-              f"warm_s={host_s['done']:.4f}; results {'/'.join(how)} "
-              f"({jit})")
+              f"warm_s={t_warm:.4f}; results {'/'.join(how)} "
+              f"({jit}), warm bitwise to the eager fill")
         del flips, cache, base
 
         small = tpch.build_catalog(sf=2.0, seed=1, num_nodes=2,
@@ -3115,6 +3160,246 @@ def family_phase(cfg, shapes: dict, device, sync, card: str = "no card",
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------- train phase
+def ulp32(x: float) -> float:
+    """The spacing of float32 numbers at ``x``."""
+    import math
+    return 2.0 ** (math.frexp(abs(x))[1] - 24)
+
+
+def grad_check(model, cfg, tokens, gen, card: str) -> dict:
+    """A central difference of ``loss_fn`` along one random unit direction
+    ``d`` against autograd's ``<grad, d>``, on ``model``'s parameters
+    widened to fp32 (exactly) and a ``GRAD_SHAPE`` batch; beside it, how
+    far the bf16 gradient is from the fp32 one.
+
+    The step is ``h = GRAD_STEP |theta|``. The tolerance: each fp32 loss
+    is its exact value plus a rounding error of a few ulps (``GRAD_ULPS``),
+    so the difference of the two losses over ``2 h`` is off by at most
+    ``2 GRAD_ULPS ulp(L) / (2 h)``; ``GRAD_REL`` of ``|<grad, d>|`` more
+    covers the fp32 gradient's own rounding and the O(h^2) truncation.
+    ``tests/test_torch_train.py::
+    test_the_gradient_checks_tolerance_covers_the_fp32_rounding`` holds
+    both bounds against an fp64 evaluation of a 2-layer, 512-wide olmo on
+    the CPU."""
+    import math
+
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_map_specs
+
+    def grads(m):
+        m.requires_grad_(True)
+        try:
+            loss = api.loss_fn(m, cfg, {"tokens": tokens})
+            return float(loss.detach()), torch.autograd.grad(
+                loss, list(m.parameters()), allow_unused=True)
+        finally:
+            m.requires_grad_(False)
+
+    _, g16 = grads(model)
+    wide = type(model)(cfg, tree_map_specs(lambda t: t.float(),
+                                           model.tree()))
+    loss0, g32 = grads(wide)
+    g32 = [torch.zeros_like(p) if g is None else g
+           for p, g in zip(wide.parameters(), g32)]
+    dot = lambda a, b: sum(float((x.double() * y.double()).sum())  # noqa: E731
+                           for x, y in zip(a, b))
+    n32 = math.sqrt(dot(g32, g32))
+    d16 = [g32i - (torch.zeros_like(g32i) if g is None else g.float())
+           for g32i, g in zip(g32, g16)]
+    err16 = math.sqrt(dot(d16, d16)) / n32
+    del g16, d16
+    d = [torch.randn(p.shape, generator=gen, device=p.device)
+         for p in wide.parameters()]
+    nd = math.sqrt(dot(d, d))
+    d = [x / nd for x in d]
+    gd = dot(g32, d)
+    params = list(wide.parameters())
+    h = GRAD_STEP * math.sqrt(dot(params, params))
+    del g32
+    with torch.no_grad():
+        for p, x in zip(params, d):
+            p.add_(h * x)
+        plus = float(api.loss_fn(wide, cfg, {"tokens": tokens}))
+        for p, x in zip(params, d):
+            p.sub_(2 * h * x)
+        minus = float(api.loss_fn(wide, cfg, {"tokens": tokens}))
+    del wide, d, params
+    fd = (plus - minus) / (2 * h)
+    round_tol = 2 * GRAD_ULPS * ulp32(loss0) / (2 * h)
+    tol = round_tol + GRAD_REL * abs(gd)
+    check(all(map(math.isfinite, (loss0, plus, minus, gd))) and
+          abs(fd - gd) <= tol,
+          f"train: the central difference {fd:.6e} and <grad, d> {gd:.6e} "
+          f"differ by {abs(fd - gd):.3e}, tolerance {tol:.3e}")
+    print(f"train: gradient check on {tuple(tokens.shape)} in fp32: loss "
+          f"{loss0:.6f}, |grad| {n32:.6g}; along a random unit direction "
+          f"(h = {h:.4g}): central difference {fd:.6e}, <grad, d> "
+          f"{gd:.6e}, difference {abs(fd - gd):.3e} within {tol:.3e} "
+          f"({2 * GRAD_ULPS} ulp of the loss over 2h = {round_tol:.3e}, "
+          f"plus {GRAD_REL} of |<grad, d>|); the bf16 gradient "
+          f"{err16:.4g} of |grad| off the fp32 one; {card}")
+    return {"fd": fd, "gd": gd, "tol": tol, "bf16_rel": err16}
+
+
+def train_phase(cfg, corpus_kw: dict, query_kw: dict, device, sync,
+                card: str = "no card", seed: int = 0, published: int = 0,
+                resume_layers: int = RESUME_LAYERS):
+    """Training at ``cfg``'s width and depth (``repro_torch.train``), fed by
+    the pushdown pipeline over ``corpus_kw``'s corpus with ``query_kw``:
+    every partition's ``fused_scan_shuffle`` launch at this query's ranks
+    held bitwise to the plain version; ``make_host_train_step(remat=True)``
+    for ``len(TRAIN_ORDER)`` steps over the pipeline's first batches (the
+    first one again last, whose loss must have fallen), timed; the fp32
+    directional-derivative check (``grad_check``); then at the width with
+    the depth cut to ``resume_layers``, ``train`` straight through to
+    ``RESUME_STEPS[1]`` and again saved at ``RESUME_STEPS[0]`` and resumed,
+    the final losses within ``RESUME_TOL``, and a ``restore`` of the saved
+    state equal bit for bit to the resumed run's. Returns the launches of
+    the driven runs (the draws and steps, and the three ``train`` runs).
+    ``published`` (when not 0) is the parameter count to hold."""
+    import math
+    import tempfile
+
+    from repro_torch.data.pipeline import (CorpusQuery, PushdownDataPipeline,
+                                           synth_corpus)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+    from repro_torch.models import api
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import TrainConfig, make_host_train_step, train
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    corpus = synth_corpus(**corpus_kw)
+    query = CorpusQuery(**query_kw)
+    pipe = PushdownDataPipeline(corpus, query, device=device)
+    expr, P = query.predicate(), query.dp_ranks
+    for part in pipe._parts:
+        got = kops.fused_scan_shuffle(part.cols, expr, part.doc_id, P)
+        prog = program_for(expr, part.cols)
+        want = ref.fused_scan_shuffle(prog, [part.cols[c] for c in
+                                             prog.columns], part.doc_id, P)
+        check(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, want)),
+              "train: a partition's fused_scan_shuffle differs from the "
+              "plain version")
+    sync()
+    print(f"train: corpus made and on {device}, {len(pipe._parts)} "
+          f"fused_scan_shuffle launches at P={P} held bitwise, in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = api.init_params(cfg, gen, device)
+    opt = opt_lib.init(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == api.count_params(cfg) and
+          (not published or n_params == published),
+          f"train: {n_params} parameters, count_params "
+          f"{api.count_params(cfg)}, published {published or 'n/a'}")
+    step = make_host_train_step(cfg, opt_lib.AdamWConfig(**TRAIN_OPT),
+                                remat=True)
+    drive, launches, _ = launch_counting(sync)
+    batches, stats, secs = [], [], []
+
+    def run():
+        nonlocal model, opt
+        batches.extend(next(pipe) for _ in range(max(TRAIN_ORDER) + 1))
+        for i in TRAIN_ORDER:
+            sync()
+            t = time.perf_counter()
+            model, opt, st = step(model, opt, batches[i])
+            stats.append({k: float(v) for k, v in st.items()})  # syncs
+            secs.append(time.perf_counter() - t)
+    drive(run)
+    shape = tuple(batches[0]["tokens"].shape)
+    tok = math.prod(shape)
+    losses = [s["loss"] for s in stats]
+    check(all(math.isfinite(s[k]) for s in stats for k in s),
+          "train: a step's loss, grad_norm or lr is not finite")
+    check(losses[-1] < losses[0], f"train: the loss on the repeated first "
+          f"batch did not fall ({losses[0]:.6f} -> {losses[-1]:.6f})")
+    want = launches["fused_scan_shuffle"] > 0 if on_card else \
+        launches["fused_scan_shuffle"] == 0
+    check(want and all(n == 0 for k, n in launches.items()
+                       if k != "fused_scan_shuffle"),
+          f"train: launches {launches}")
+    warm = statistics.median(secs[1:])
+    peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if on_card else "not measured")
+    joined = lambda xs, fmt, sep=" / ": sep.join(  # noqa: E731
+        format(x, fmt) for x in xs)
+    print(f"train: {cfg.name} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters, batches {shape} "
+          f"(accum, mb, S), remat=True, AdamW {TRAIN_OPT}: "
+          f"{len(secs)} steps on batches {list(TRAIN_ORDER)}, "
+          f"{joined([x * 1e3 for x in secs], '.1f')} ms a step (median "
+          f"after the first {warm * 1e3:.1f} ms, {tok / warm:.0f} "
+          f"tokens/s); loss {joined(losses, '.6f', ' -> ')}; grad_norm "
+          f"{joined([x['grad_norm'] for x in stats], '.4g')}; lr "
+          f"{joined([x['lr'] for x in stats], '.3g')}; peak "
+          f"max_memory_allocated {peak}; fused_scan_shuffle launches "
+          f"{launches['fused_scan_shuffle']}; {card}")
+
+    del opt
+    if on_card:
+        torch.cuda.empty_cache()
+    B, S = GRAD_SHAPE
+    grad_check(model, cfg, batches[0]["tokens"][0, :B, :S], gen, card)
+    del model, batches
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # resume exactness at the width with the depth cut
+    small = dataclasses.replace(cfg, num_layers=resume_layers)
+    ocfg = opt_lib.AdamWConfig(lr=TRAIN_OPT["lr"], warmup_steps=2,
+                               total_steps=RESUME_STEPS[1])
+    data = lambda: iter(PushdownDataPipeline(  # noqa: E731
+        corpus, query, seed=3, device=device))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tc = lambda steps, every, where: TrainConfig(  # noqa: E731
+            steps=steps, ckpt_every=every, ckpt_dir=where, keep=1,
+            log_every=1, opt=ocfg)
+        full = drive(train, small, data(), tc(RESUME_STEPS[1], 100, None),
+                     device=device)
+        drive(train, small, data(), tc(RESUME_STEPS[0], RESUME_STEPS[0], d),
+              device=device)
+        resumed = drive(train, small, data(), tc(RESUME_STEPS[1], 100, d),
+                        device=device)
+        t_runs = time.perf_counter() - t0
+        a, b = full["history"][-1]["loss"], resumed["history"][-1]["loss"]
+        check(full["final_step"] == resumed["final_step"] == RESUME_STEPS[1]
+              and abs(a - b) < RESUME_TOL,
+              f"train: resumed loss {b} against straight-through {a}")
+        mgr = ckpt.CheckpointManager(d)
+        template = api.init_params(small, torch.Generator(
+            device=device).manual_seed(seed + 1), device)
+        (got_p, got_o), at = mgr.restore((template, opt_lib.init(template)))
+        saved = ckpt._flatten((resumed["params"], resumed["opt"]))
+        back = ckpt._flatten((got_p, got_o))
+        check(at == RESUME_STEPS[1] and list(saved) == list(back) and all(
+            saved[k].dtype == back[k].dtype and torch.equal(
+                saved[k].reshape(-1).view(torch.uint8),
+                back[k].reshape(-1).view(torch.uint8)) for k in saved),
+              "train: a restored leaf differs from the saved state")
+        files = sum(f.stat().st_size for f in (
+            mgr.dir / f"step_{at:08d}").iterdir())
+    print(f"train: resume at {cfg.name}'s width with the depth cut "
+          f"{cfg.num_layers} -> {resume_layers} layers: straight through to "
+          f"step {RESUME_STEPS[1]} loss {a:.6f}, saved at "
+          f"{RESUME_STEPS[0]} and resumed {b:.6f} (difference "
+          f"{abs(a - b):.3g}, tolerance {RESUME_TOL}); the restored state "
+          f"({len(saved)} leaves, {files} bytes on disk) equal bit for bit "
+          f"and dtype; three runs in {t_runs:.2f} s; {card}")
+    del full, resumed, template, got_p, got_o, saved, back
+    return launches
+
+
 def print_records(recs, names) -> None:
     """One line per kernel record; ``names`` label records that carry no
     ``name`` of their own."""
@@ -3241,17 +3526,24 @@ def main() -> int:
                 torch.cuda.synchronize, smi[0], args.seed)
     del first
     print(f"serve phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    trained = train_phase(get_config(TRAIN_ARCH), PIPE_CORPUS, TRAIN_QUERY,
+                          "cuda", torch.cuda.synchronize, smi[0], args.seed,
+                          TRAIN_PARAMS)
+    print(f"train phase: {time.perf_counter() - t0:.2f} s")
     launches = {n: engine[n] + tensor[n] + costed[n] + comp[n] + sec42[n]
                 + cached[n] + faulted[n] + streamed[n] + traced[n]
-                + tiered[n] + piped[n] for n in records}
+                + tiered[n] + piped[n] + trained[n] for n in records}
     print("kernels: " + "; ".join(
         f"{n} check=ok launches={launches[n]} (engine {engine[n]}, tensor "
         f"{tensor[n]}, costed {costed[n]}, compiler {comp[n]}, section 4.2 "
         f"{sec42[n]}, cache {cached[n]}, faults {faulted[n]}, stream "
         f"{streamed[n]}, trace {traced[n]}, tier {tiered[n]}, pipeline "
-        f"{piped[n]})" for n in records))
+        f"{piped[n]}, train {trained[n]})" for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
+    check(trained["fused_scan_shuffle"] > 0,
+          "fused_scan_shuffle never launched in the train phase")
     # each query's stages calling grouped_agg is checked in tensor_phase
     check(tensor["grouped_agg"] > 0,
           "grouped_agg never launched in the tensor phase's driven runs")

@@ -3,7 +3,8 @@
 
     python3 profile_kernels.py {grouped_agg,predicate_bitmap,fused_scan_agg,
                                 bitmap_apply,fused_scan_shuffle,engine,
-                                cache,residual} [--seed 0] [--repeats 5]
+                                cache,residual,jitter} [--seed 0]
+                               [--repeats 5]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 ``repro_torch`` comes from ``PYTHONPATH`` when it is found there, else from
@@ -68,6 +69,15 @@ Prints the card's name and power limit.
   run's device time (``torch.profiler``, the sum over kernels) and, for
   the tensor backend, the device operations with the most time and the
   host functions with the most self time (``cProfile``) in one run.
+- ``jitter``: how often f64 sums move in their last bits from run to run
+  on the same catalog. ``--repeats`` launches of Q6's keyless
+  ``fused_scan_agg`` on the same inputs (distinct results, groups that
+  moved, the largest relative move); ``--repeats`` uncached eager runs of
+  every compiled query (distinct results, and whether each agrees with
+  the first in rows); and ``--repeats`` times chip_smoke's Q6 warm flip
+  at storage power 0.01 (an uncached eager run, then adaptive, eager and
+  adaptive on a fresh cache), each run held bitwise to that repetition's
+  uncached one and the warm run to the eager run that filled the cache.
 """
 from __future__ import annotations
 
@@ -587,16 +597,88 @@ def time_residual(dev, seed, repeats):
         del merged
 
 
+def time_jitter(dev, seed, repeats):
+    from chip_smoke import agree, bits, identical
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, run_query
+    from repro_torch.core.result_cache import ResultCache
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_scan_agg as fsa
+    from repro_torch.kernels.program import program_for
+    from repro_torch.queryproc import operators, queries
+
+    _build.build_all()
+    cat = lineitem_catalog(dev, seed)
+    parts = cat.partitions_of("lineitem")
+    li = cat.scan_table("lineitem", ["l_shipdate", "l_discount",
+                                     "l_quantity", "l_extendedprice"]).cols
+    seg = torch.repeat_interleave(
+        torch.arange(len(parts), device=dev),
+        torch.as_tensor([len(p.data) for p in parts], device=dev))
+    plan = queries.build_query("Q6").plans["lineitem"]
+    ids, G, _ = operators.group_ids([], lead=seg, lead_size=len(parts))
+    prog = program_for(plan.predicate, li)
+    cols = [li[c] for c in prog.columns]
+    vals = [li["l_extendedprice"] * li["l_discount"]]
+    runs = [fsa.fused_scan_agg(prog, cols, ids, vals, G)[0][0]
+            for _ in range(repeats)]
+    first = runs[0]
+    moved = torch.zeros(G, dtype=torch.bool, device=dev)
+    rel = 0.0
+    for s in runs[1:]:
+        moved |= bits(s) != bits(first)
+        rel = max(rel, float(((s - first).abs() / first.abs().clamp(
+            min=1e-300)).max()))
+    print(f"jitter fused_scan_agg Q6 keyless R={ids.shape[0]} G={G}: "
+          f"{len({bits(s).cpu().numpy().tobytes() for s in runs})} distinct "
+          f"results in {repeats} launches, {int(moved.sum())} of {G} groups "
+          f"moved, largest relative move {rel:.3e}")
+    del runs, vals, cols, li, seg, ids
+
+    def cfg(cache=None, mode="eager", power=1.0):
+        return EngineConfig(res=StorageResources(storage_power=power),
+                            mode=mode, device=dev, result_cache=cache)
+    for qid in QUERY_IDS:
+        q = queries.build_query(qid)
+        results = [run_query(q, cat, cfg()).result for _ in range(repeats)]
+        distinct = [results[0]]
+        for r in results[1:]:
+            if not any(identical(r, d) for d in distinct):
+                distinct.append(r)
+        how = sorted({agree(results[0], r) for r in results[1:]})
+        print(f"jitter {qid} eager uncached: {len(distinct)} distinct "
+              f"results in {repeats} runs; against the first: {how}")
+        del results, distinct
+
+    q6 = queries.build_query("Q6")
+    tally = {}
+    for _ in range(repeats):
+        base = run_query(q6, cat, cfg(None, "eager", 0.01)).result
+        cache = ResultCache(2 << 30)
+        flips = [run_query(q6, cat, cfg(cache, mode, 0.01)).result
+                 for mode in ("adaptive", "eager", "adaptive")]
+        key = (tuple(agree(base, f) for f in flips),
+               identical(flips[1], flips[2]))
+        tally[key] = tally.get(key, 0) + 1
+        cache.clear()
+    for (how, served), n in sorted(tally.items()):
+        print(f"jitter Q6 warm flip at storage power 0.01: {n} of {repeats} "
+              f"repetitions: cold adaptive/eager/warm adaptive against the "
+              f"uncached run {'/'.join(h or 'differ' for h in how)}; warm "
+              f"adaptive bitwise to the eager fill: {served}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap",
                                        "fused_scan_agg", "bitmap_apply",
                                        "fused_scan_shuffle", "engine",
-                                       "cache", "residual"))
+                                       "cache", "residual", "jitter"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=5,
                     help="timed runs a configuration (engine, cache, "
-                    "residual)")
+                    "residual), or runs a comparison (jitter)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -622,6 +704,8 @@ def main() -> int:
         time_cache(dev, args.seed, args.repeats)
     elif args.kernel == "residual":
         time_residual(dev, args.seed, args.repeats)
+    elif args.kernel == "jitter":
+        time_jitter(dev, args.seed, args.repeats)
     else:
         time_grouped_agg(dev, torch.Generator(device=dev).manual_seed(
             args.seed), torch.cuda.get_device_properties(dev)

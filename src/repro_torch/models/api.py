@@ -4,8 +4,11 @@
 - ``init_params(cfg, generator, device)`` the family's model module
 - ``from_reference(cfg, tree, device)``   the reference's parameters
 - ``forward(params, cfg, batch, ...)``    -> (logits, aux, loss_mask, cache?)
-- ``loss_fn(params, cfg, batch, ...)``    next-token CE (+ MoE aux)
-- ``cache_specs / prefill / decode_step / build_decode_cache`` serving
+- ``loss_fn(params, cfg, batch, ...)``    next-token CE (+ MoE aux); its
+                                          ``remat`` checkpoints each unit
+- ``cache_specs / prefill / decode_step / build_decode_cache`` serving,
+                                          under ``no_grad``: a module that
+                                          trains serves without a graph
 - ``count_params(cfg)``                   analytic parameter count
 
 Families: ``dense``, ``moe`` and ``vlm`` run the generic decoder
@@ -74,15 +77,17 @@ def forward(params, cfg: ModelConfig, batch, **kw):
     return _mod(cfg).forward(params, cfg, batch, **kw)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
+def loss_fn(params, cfg: ModelConfig, batch, *,
+            remat: Union[bool, str] = False, aux_weight: float = 0.01,
             blockwise: bool = False) -> torch.Tensor:
-    logits, aux, mask, _ = forward(params, cfg, batch, blockwise=blockwise)
+    logits, aux, mask, _ = forward(params, cfg, batch, remat=remat,
+                                   blockwise=blockwise)
     labels = torch.as_tensor(batch["tokens"], device=logits.device)
     # VLM: logits cover patch prefix + tokens; score text positions only
     logits_t = logits[:, logits.shape[1] - labels.shape[1]:]
     lf = logits_t[:, :-1].float()
     tgt = labels[:, 1:].long()
-    lmax = lf.amax(dim=-1).detach()
+    lmax = lf.amax(dim=-1).detach()  # the reference's stop_gradient
     lse = torch.log(torch.exp(lf - lmax[..., None]).sum(-1)) + lmax
     # the reference sums lf * one_hot(tgt) over the vocab (a form that keeps
     # a sharded vocab axis sharded); one nonzero term: the same value
@@ -97,6 +102,7 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
     return _mod(cfg).cache_specs(cfg, batch, seq_len)
 
 
+@torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, *, blockwise: bool = True):
     """Run the full prompt, return (last_logits, cache)."""
     logits, _, _, cache = forward(params, cfg, batch, blockwise=blockwise,
@@ -104,6 +110,7 @@ def prefill(params, cfg: ModelConfig, batch, *, blockwise: bool = True):
     return logits[:, -1], cache
 
 
+@torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, pos, token):
     return _mod(cfg).decode_step(params, cfg, cache, pos, token)
 

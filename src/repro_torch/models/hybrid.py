@@ -18,7 +18,7 @@ masks the wrong slots; the port decodes as the reference does.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import torch
 from torch import nn
@@ -34,8 +34,8 @@ from repro_torch.models.params import p
 from repro_torch.models.rglru import (rglru_cache_specs, rglru_decode_step,
                                       rglru_forward, rglru_specs)
 from repro_torch.models.transformer import (ParamTree, _cache_positions,
-                                            cache_update, stack_trees,
-                                            unstack_tree)
+                                            cache_update, remat_unit,
+                                            stack_trees, unstack_tree)
 
 
 def structure(cfg: ModelConfig):
@@ -134,22 +134,31 @@ def _block_fwd(x, bp: HybridBlock, cfg: ModelConfig, positions,
 
 
 def forward(params: HybridLM, cfg: ModelConfig, batch, *,
-            collect_cache: bool = False, **_):
-    """-> (logits fp32, aux 0, loss_mask, cache or None). ``blockwise``,
-    ``causal_skip`` and ``remat`` are accepted and ignored, as the
-    reference's ``**_`` does."""
+            remat: Union[bool, str] = False, collect_cache: bool = False,
+            **_):
+    """-> (logits fp32, aux 0, loss_mask, cache or None). ``remat``
+    checkpoints each unit of ``len(block_unit)`` blocks, not the tail, as
+    the reference's scan body (``transformer.remat_unit``); ``blockwise``
+    and ``causal_skip`` are accepted and ignored, as the reference's
+    ``**_`` does."""
     dev = params.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = embed_tokens(params.embed, tokens)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=dev)
     positions = torch.arange(x.shape[1], device=dev)
     U, _ = structure(cfg)
-    unit_caches = []
-    for u in range(U):
+
+    def unit_body(x, u):
         caches = {}
         for i, bp in enumerate(params.unit(u)):
             x, caches[f"b{i}"] = _block_fwd(x, bp, cfg, positions,
                                             collect_cache)
+        return x, caches
+
+    body = remat_unit(unit_body, remat)
+    unit_caches = []
+    for u in range(U):
+        x, caches = body(x, u)
         unit_caches.append(caches)
     tail_caches = {}
     for i, bp in enumerate(params.tail):

@@ -8,7 +8,7 @@ layout: every leaf (L, B, ...).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 from torch import nn
@@ -18,8 +18,8 @@ from repro_torch.models.layers import (apply_norm, embed_specs, embed_tokens,
                                        lm_logits, norm_specs)
 from repro_torch.models.ssm import (ssd_decode_step, ssd_forward,
                                     ssm_cache_specs, ssm_specs)
-from repro_torch.models.transformer import (ParamTree, stack_trees,
-                                            unstack_tree)
+from repro_torch.models.transformer import (ParamTree, remat_unit,
+                                            stack_trees, unstack_tree)
 
 
 def init_specs(cfg: ModelConfig):
@@ -56,19 +56,26 @@ class MambaLM(nn.Module):
 
 
 def forward(params: MambaLM, cfg: ModelConfig, batch, *,
-            collect_cache: bool = False, **_):
-    """-> (logits fp32, aux 0, loss_mask, decode cache or None).
-    ``blockwise``, ``causal_skip`` and ``remat`` are accepted and ignored,
-    as the reference's ``**_`` does."""
+            remat: Union[bool, str] = False, collect_cache: bool = False,
+            **_):
+    """-> (logits fp32, aux 0, loss_mask, decode cache or None). ``remat``
+    checkpoints each layer (``transformer.remat_unit``); ``blockwise`` and
+    ``causal_skip`` are accepted and ignored, as the reference's ``**_``
+    does."""
     dev = params.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = embed_tokens(params.embed, tokens)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=dev)
-    caches = []
-    for lp in params.layers:
+
+    def body(x, lp):
         h = apply_norm(x, lp["norm"], cfg)
         y, cache = ssd_forward(h, lp["ssm"], cfg, return_cache=collect_cache)
-        x = x + y
+        return x + y, cache
+
+    body = remat_unit(body, remat)
+    caches = []
+    for lp in params.layers:
+        x, cache = body(x, lp)
         if collect_cache:
             caches.append(cache)
     x = apply_norm(x, params.final_norm, cfg)

@@ -11,10 +11,13 @@ reference's stacked layout.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+from typing import Callable, Dict, List, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attention, attn_out, attn_specs,
@@ -82,7 +85,8 @@ def _attn_kind(cfg: ModelConfig, pos_in_unit: int):
 class ParamTree(nn.Module):
     """A nested dict of parameters as a module: ``tree[name]`` is a
     parameter or a sub-tree, ``name in tree`` and ``len(tree)`` work as on
-    the reference's dicts. Parameters are held without gradients."""
+    the reference's dicts. Parameters are made without gradients, so that
+    serving builds no graph; training turns them on (``requires_grad_``)."""
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -169,6 +173,37 @@ class Decoder(nn.Module):
         return out
 
 
+# --------------------------------------------------------------- remat
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of matmuls without batch dimensions and recompute the rest
+    (the attention's batched products, the elementwise chains). An
+    ``einsum`` projection reaches ``bmm`` over one batch entry, its form of
+    such a matmul."""
+    if op in _SAVED_DOTS or (op is torch.ops.aten.bmm.default
+                             and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_unit(body: Callable, remat: Union[bool, str]) -> Callable:
+    """``body`` as the reference's ``jax.checkpoint`` of a unit body:
+    ``remat=True`` keeps only the unit's inputs for backward and recomputes
+    the unit, ``"dots"`` also keeps the matmul outputs without batch
+    dimensions; a false ``remat`` runs ``body`` as it is. Recomputation
+    runs the same ops on the same inputs, so no value changes."""
+    if not remat:
+        return body
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
+
+
 # --------------------------------------------------------------- forward
 def _sublayer(x, blk: Block, cfg: ModelConfig, positions, blockwise,
               causal_skip):
@@ -214,24 +249,35 @@ def _prefix_embed(params: Decoder, cfg: ModelConfig, batch):
 
 
 def forward(params: Decoder, cfg: ModelConfig, batch, *,
-            blockwise: bool = False, causal_skip: bool = False,
-            collect_cache: bool = False):
+            blockwise: bool = False, remat: Union[bool, str] = False,
+            causal_skip: bool = False, collect_cache: bool = False):
     """-> (logits fp32, aux_loss, loss_mask, cache_kv or None). The cache
     is ``(k, v)``, each ``(U, B, S, KV, hd)`` or ``(U, ul, B, S, KV, hd)``
-    as the reference's scan stacks them."""
+    as the reference's scan stacks them. ``remat`` checkpoints each unit
+    (one block, or llama4's ``ul`` blocks; see ``remat_unit``)."""
     x, mask = _prefix_embed(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
-    for blk in params.blocks:
-        x, a, (k, v) = _sublayer(x, blk, cfg, positions, blockwise,
+    ul = unit_len(cfg)
+
+    def unit_body(x, aux, u):
+        kvs = []
+        for blk in params.blocks[u * ul:(u + 1) * ul]:
+            x, a, kv = _sublayer(x, blk, cfg, positions, blockwise,
                                  causal_skip)
-        if a is not None:
-            aux = aux + a
+            if a is not None:
+                aux = aux + a
+            kvs.append(kv)
+        return x, aux, kvs
+
+    body = remat_unit(unit_body, remat)
+    ks, vs = [], []
+    for u in range(num_units(cfg)):
+        x, aux, kvs = body(x, aux, u)
         if collect_cache:
-            ks.append(k)
-            vs.append(v)
+            ks += [k for k, _ in kvs]
+            vs += [v for _, v in kvs]
     x = apply_norm(x, params.final_norm, cfg)
     logits = lm_logits(params.embed, x)
     cache = None

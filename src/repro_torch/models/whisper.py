@@ -13,7 +13,7 @@ the cross-attention's ``xk``/``xv`` (L, B, F, KV, hd).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 from torch import nn
@@ -27,7 +27,8 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed_specs,
                                        norm_specs)
 from repro_torch.models.params import p
 from repro_torch.models.transformer import (ParamTree, cache_update,
-                                            stack_trees, unstack_tree)
+                                            remat_unit, stack_trees,
+                                            unstack_tree)
 
 
 def init_specs(cfg: ModelConfig):
@@ -93,18 +94,20 @@ def _cross_kv(lp, cfg: ModelConfig, enc):
 
 
 def forward(params: EncoderDecoder, cfg: ModelConfig, batch, *,
-            blockwise: bool = False, collect_cache: bool = False, **_):
-    """-> (logits fp32, aux 0, loss_mask, cache or None). ``causal_skip``
-    and ``remat`` are accepted and ignored, as the reference's ``**_``
-    does."""
+            blockwise: bool = False, remat: Union[bool, str] = False,
+            collect_cache: bool = False, **_):
+    """-> (logits fp32, aux 0, loss_mask, cache or None). ``remat``
+    checkpoints each decoder layer, not the encoder, as the reference's
+    scan body (``transformer.remat_unit``); ``causal_skip`` is accepted and
+    ignored, as the reference's ``**_`` does."""
     dev = params.device
     enc = encode(params, cfg, batch["frames"])
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = embed_tokens(params.embed, tokens)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=dev)
     positions = torch.arange(x.shape[1], device=dev)
-    caches = []
-    for lp in params.dec_layers:
+
+    def body(x, enc, lp):
         h = apply_norm(x, lp["norm1"], cfg)
         q, k, v = qkv_proj(h, lp["attn"], cfg, positions, rope=True)
         if blockwise:
@@ -119,8 +122,14 @@ def forward(params: EncoderDecoder, cfg: ModelConfig, batch, *,
         x = x + attn_out(attention(qx, kx, vx, cfg, kind="bidir"),
                          lp["xattn"])
         x = x + apply_mlp(apply_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+        return x, {"k": k, "v": v, "xk": kx, "xv": vx}
+
+    body = remat_unit(body, remat)
+    caches = []
+    for lp in params.dec_layers:
+        x, cache = body(x, enc, lp)
         if collect_cache:
-            caches.append({"k": k, "v": v, "xk": kx, "xv": vx})
+            caches.append(cache)
     x = apply_norm(x, params.final_norm, cfg)
     logits = lm_logits(params.embed, x)
     aux = torch.zeros((), dtype=torch.float32, device=dev)

@@ -17,7 +17,8 @@ models: the chunk boundary changes how the KV cache fills, not what it
 holds.
 
 The model runs wherever its parameters live (``models.api.init_params``
-puts them on the GPU unless given ``device="cpu"``).
+puts them on the GPU unless given ``device="cpu"``), under ``no_grad``: a
+module that trains (``train.loop``) serves without building a graph.
 """
 from __future__ import annotations
 
@@ -86,6 +87,7 @@ class ServingEngine:
         self.serve(reqs)
         return [r.out_tokens for r in reqs]
 
+    @torch.no_grad()
     def serve(self, requests: List[Request]) -> List[Request]:
         """Serve requests in waves of ``max_batch`` slots, honoring each
         request's own ``max_new``; the wave ends when every slot is done.

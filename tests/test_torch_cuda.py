@@ -1423,3 +1423,47 @@ def test_serving_engine_on_the_card(cuda):
         got, _ = eng._prefill(toks.to(cuda), len(wave))
         want, _ = ref._prefill(toks, len(wave))
         assert torch.allclose(got.cpu(), want, **MODEL_TOL)
+
+
+@pytest.mark.parametrize("remat", [True, "dots"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """One ``make_host_train_step`` (accum 2, with each ``remat``) on
+    reduced olmo-1b on the card and on the CPU (no remat) from the same
+    parameters and batch: the loss,
+    ``grad_norm`` and ``lr`` within the models' tolerance, every updated
+    parameter within bf16 tolerance (rtol = atol = 2e-2), ``step`` equal.
+    Then the trained module serves under ``inference_mode``."""
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.loop import make_host_train_step
+    cfg, model, cpu = _reduced_pair("olmo-1b", cuda)
+    g = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 4, 64),
+                                     generator=g, dtype=torch.int32)}
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = make_host_train_step(cfg, ocfg, remat=remat)
+    model, opt, st = step(model, opt_lib.init(model),
+                          {"tokens": batch["tokens"].to(cuda)})
+    cpu, copt, cst = make_host_train_step(cfg, ocfg)(cpu, opt_lib.init(cpu),
+                                                     batch)
+    for k in ("loss", "grad_norm", "lr"):
+        assert st[k].is_cuda
+        assert torch.allclose(st[k].cpu(), cst[k], **MODEL_TOL), k
+    got, want = _flatten((model, opt)), _flatten((cpu, copt))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].is_cuda and got[k].dtype == want[k].dtype, k
+        if want[k].is_floating_point():
+            assert torch.allclose(got[k].cpu().float(), want[k].float(),
+                                  **MODEL_TOL), k
+        else:
+            assert torch.equal(got[k].cpu(), want[k]), k
+    assert not any(p.requires_grad for p in model.parameters())
+    eng = ServingEngine(cfg, model, ServeConfig(max_len=64))
+    with torch.inference_mode():
+        out = eng.generate([np.arange(1, 17, dtype=np.int32)], max_new=4)
+        logits, _ = api.prefill(model, cfg, {"tokens": batch["tokens"][0].to(
+            cuda)})
+    assert len(out[0]) == 4 and logits.grad_fn is None

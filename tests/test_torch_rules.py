@@ -1,8 +1,8 @@
 """The port's package rules.
 
-- No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax`` or
-  the JAX package ``repro``, and importing every module of the port leaves
-  both out of ``sys.modules``.
+- No file of ``src/repro_torch/``, ``chip_smoke.py`` or the port's examples
+  imports ``jax`` or the JAX package ``repro``, and importing every module
+  of the port leaves both out of ``sys.modules``.
 - Entry points run on the GPU by default: without one they raise instead of
   running on the CPU, and a kernel wrapper given a tensor on a device other
   than the CPU launches its kernel or raises, never falls back.
@@ -23,7 +23,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_batch_torch.py",
+     ROOT / "examples" / "train_pushdown_pipeline_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,7 +38,7 @@ def _imported_roots(path: Path):
 
 def test_the_rules_cover_the_cost_based_modules():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
-             for p in PORT_FILES if p.name != "chip_smoke.py"}
+             for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
     assert {"compiler/multitable.py", "compiler/compile.py",
             "core/optimum.py", "core/cost.py", "core/engine.py",
             "core/runtime.py", "core/simulator.py", "obs/metrics.py",
@@ -53,7 +54,9 @@ def test_the_rules_cover_the_cost_based_modules():
             "models/ssm.py", "models/rglru.py", "models/hybrid.py",
             "models/mamba_model.py", "models/whisper.py",
             "configs/mamba2_2_7b.py", "configs/recurrentgemma_2b.py",
-            "configs/whisper_small.py"} <= names
+            "configs/whisper_small.py", "train/__init__.py",
+            "train/optimizer.py", "train/checkpoint.py",
+            "train/loop.py"} <= names
 
 
 def _start_methods(path: Path):
@@ -117,6 +120,7 @@ def test_without_a_gpu_the_entry_points_raise(monkeypatch):
     from repro_torch.models import api
     from repro_torch.queryproc import queries, tpch
     from repro_torch.storage.catalog import Catalog
+    from repro_torch.train.loop import TrainConfig, train
     cat = tpch.build_catalog(sf=0.1, num_nodes=1, rows_per_partition=2000,
                              device="cpu")
     cfg = get_config("olmo-1b", reduced=True)
@@ -139,6 +143,8 @@ def test_without_a_gpu_the_entry_points_raise(monkeypatch):
         api.init_params(cfg)
     with pytest.raises(RuntimeError):
         api.from_reference(cfg, tree)
+    with pytest.raises(RuntimeError):
+        train(cfg, iter([]), TrainConfig(steps=1))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
