@@ -183,7 +183,30 @@ GPU is present. Phases:
    width cut to ``RESUME_LAYERS`` layers ``train`` straight through 8
    steps against 4 saved and resumed to 8 (final losses within
    ``RESUME_TOL``), the saved state restored bit for bit.
-16. Prints each kernel's launches in phases 3 to 15 (all must be above 0,
+16. Launch: the distribution and launch layers (``repro_torch.launch``) on
+   a ``make_host_mesh()`` (1, 1) mesh over one NCCL rank (a ``HashStore``
+   group of one, destroyed after). olmo-1b at its published width and
+   depth: ``steps.build`` of train_4k cut to ``LAUNCH_TRAIN`` (global
+   batch 8, S 2048, accum 2) on parameters and AdamW state as DTensors,
+   fed the pipeline's first two batches with ``TRAIN_QUERY`` (every
+   ``fused_scan_shuffle`` launch held bitwise), 2 steps held to
+   ``make_host_train_step(remat=True)`` on the same parameters and
+   batches (loss, ``grad_norm``, every updated parameter: bitwise), both
+   timed; one more built step under ``analysis.Recorder`` counts the
+   FLOPs. qwen2-moe-a2.7b at its published width with the ``opt``
+   variant's ``expert_pad`` (64 experts), parameters drawn on the card:
+   ``build_prefill`` on (4, 2048) pipeline tokens and ``build_decode``
+   for ``MOE_DECODE_STEPS`` greedy steps at B = 4 (cache 2064), under
+   ``moe_impl("ep")`` and ``moe_impl("dense")``, every logit bitwise
+   equal; a decode step against forward one token longer in fp32 at the
+   same width cut to ``MOE_CHECK_UNITS`` layers (``api.with_depth``),
+   the full-depth bf16 error beside it; the expert all-to-all's round
+   trip bitwise and ``compressed_psum``'s one-rank path on the NCCL rank;
+   olmo-1b's roofline on ``mesh.H100`` (recorded FLOPs, analytic bytes,
+   the measured step) and its MFU; the dry run of olmo-1b decode_32k on
+   a 256-rank fake group, in a subprocess beside the MoE part (``0
+   failures``).
+17. Prints each kernel's launches in phases 3 to 16 (all must be above 0,
    and on the tier ``predicate_bitmap``, ``fused_scan_agg`` and the two
    shuffle kernels inside the workers, ``grouped_agg`` in the parent's
    residuals), the per-kernel JSON line and, last, the ``{"ok": true,
@@ -293,6 +316,14 @@ RESUME_LAYERS = 2             # the resume check's depth cut (a full-depth
 #                               save writes ~12 GB)
 RESUME_STEPS = (4, 8)         # saved at the first, resumed to the second
 RESUME_TOL = 5e-2             # tests/test_substrate.py's resume tolerance
+# the launch phase (16)
+LAUNCH_TRAIN = dict(global_batch=8, seq_len=2048, accum=2)  # train_4k cut
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PUBLISHED = 14_315_735_040  # count_params without the expert padding
+MOE_PREFILL = (4, 2048)       # prefill batch; decode's cache holds 2064
+MOE_DECODE_STEPS = 16
+MOE_CHECK_UNITS = 2           # the fp32 decode check's depth cut
+DRYRUN_TIMEOUT_S = 240.0
 REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "fused_scan_agg": "src/repro/kernels/fused_scan_agg.py:56",
             "grouped_agg": "src/repro/kernels/grouped_agg.py:48",
@@ -353,7 +384,8 @@ def nbytes(*tensors) -> int:
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     """The tensor's raw bits, so that equality is bitwise for floats too."""
-    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3400,6 +3432,371 @@ def train_phase(cfg, corpus_kw: dict, query_kw: dict, device, sync,
     return launches
 
 
+def launch_group(device):
+    """A one-rank process group for the launch phase: NCCL on the card,
+    gloo on the CPU (a ``HashStore``: nothing listens)."""
+    import torch.distributed as dist
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors (or DTensors) equal bit for bit."""
+    from torch.distributed.tensor import DTensor
+    a = a.to_local() if isinstance(a, DTensor) else a
+    b = b.to_local() if isinstance(b, DTensor) else b
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        bits(a.contiguous()), bits(b.contiguous()))
+
+
+def local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def decode_and_forward(cfg, model, plain, toks, mesh, max_len: int):
+    """The last logits of one decode step after a built prefill of
+    ``toks`` (``model``, DTensors on ``mesh``, under
+    ``moe_impl("ep")``) and of ``forward`` over ``toks`` and that step's
+    token (``plain``, the same parameters as plain tensors), as CPU fp32
+    tensors."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_shape
+    from repro_torch.launch import steps
+    from repro_torch.models import api, flags
+    B, S = toks.shape
+    pre = steps.build(cfg, dc.replace(get_shape("prefill_32k"),
+                                      global_batch=B, seq_len=S), mesh)
+    dec = steps.build(cfg, dc.replace(get_shape("decode_32k"),
+                                      global_batch=B, seq_len=max_len), mesh)
+    with torch.no_grad(), flags.moe_impl("ep"):
+        last, cache = pre.fn(model, steps.place(pre.abstract_args[1],
+                                                {"tokens": toks}, mesh))
+        cache = api.decode_cache_layout(cfg, cache, max_len)
+        nxt = torch.argmax(local(last), -1).to(torch.int32)[:, None]
+        lg, _ = dec.fn(model, cache, S, steps.place(dec.abstract_args[3],
+                                                    nxt, mesh))
+        del cache
+        full = api.forward(plain, cfg, {"tokens": torch.cat(
+            [toks, nxt], 1)})[0][:, -1]
+    return local(lg)[:, -1].float().cpu(), full.float().cpu()
+
+
+def launch_phase(cfg, moe_cfg, corpus_kw: dict, query_kw: dict, device,
+                 sync, card: str = "no card", seed: int = 0,
+                 published: tuple = (TRAIN_PARAMS, MOE_PUBLISHED),
+                 train_cut: dict = LAUNCH_TRAIN,
+                 prefill: tuple = MOE_PREFILL,
+                 decode_steps: int = MOE_DECODE_STEPS):
+    """The distribution and launch layers on a one-rank mesh (phase 16 of
+    the module docstring): the built train step against
+    ``make_host_train_step``, the MoE's expert-parallel serving against the
+    dense dispatch, the one-rank collectives, the roofline, the dry run.
+    Returns the launches of the driven runs (the pipeline draws and the
+    built steps). ``published`` holds the two parameter counts (0: not
+    checked); the CPU rehearsal passes reduced configs and sizes."""
+    import math
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_shape
+    from repro_torch.data.pipeline import (CorpusQuery, PushdownDataPipeline,
+                                           synth_corpus)
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+    from repro_torch.launch import analysis, dryrun, steps
+    from repro_torch.launch.mesh import H100, make_host_mesh
+    from repro_torch.models import api, flags
+    from repro_torch.models import params as Pm
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import make_host_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    launch_group(device)
+    dry = None
+    try:
+        mesh = make_host_mesh(device=device)
+        check(tuple(mesh.shape) == (1, 1) and
+              mesh.mesh_dim_names == ("data", "model"),
+              f"launch: make_host_mesh() gave {mesh}")
+        drive, launches, _ = launch_counting(sync)
+
+        # ---- olmo-1b: the built train step against the host step
+        shape = dataclasses.replace(get_shape("train_4k"), **train_cut)
+        t_phase = t0 = time.perf_counter()
+        corpus = synth_corpus(**corpus_kw)
+        query = CorpusQuery(**query_kw)
+        pipe = PushdownDataPipeline(corpus, query, device=device)
+        expr, P = query.predicate(), query.dp_ranks
+        for part in pipe._parts:
+            got = kops.fused_scan_shuffle(part.cols, expr, part.doc_id, P)
+            prog = program_for(expr, part.cols)
+            want = ref.fused_scan_shuffle(prog, [part.cols[c] for c in
+                                                 prog.columns],
+                                          part.doc_id, P)
+            check(all(torch.equal(a, b.to(a.dtype))
+                      for a, b in zip(got, want)),
+                  "launch: a partition's fused_scan_shuffle differs from "
+                  "the plain version")
+        batches = drive(lambda: [next(pipe) for _ in range(2)])
+        check(tuple(batches[0]["tokens"].shape) == (
+            shape.accum, shape.global_batch // shape.accum, shape.seq_len),
+              f"launch: pipeline batches {tuple(batches[0]['tokens'].shape)}")
+        t_build = time.perf_counter()
+        bundle = steps.build(cfg, shape, mesh)
+        t_build = time.perf_counter() - t_build
+        gen = torch.Generator(device=device).manual_seed(seed)
+        host = api.init_params(cfg, gen, device)
+        n_params = sum(p.numel() for p in host.parameters())
+        check(n_params == api.count_params(cfg) and
+              (not published[0] or n_params == published[0]),
+              f"launch: {n_params} parameters, published {published[0]}")
+        host_opt = opt_lib.init(host)
+        params, opt, _ = (steps.place(a, v, mesh) for a, v in zip(
+            bundle.abstract_args, (host, host_opt, batches[0])))
+        check(all(local(p).shape == p.shape for p in params.parameters()),
+              "launch: a parameter's block is not the whole of it on the "
+              "one-rank mesh")
+        host_step = make_host_train_step(cfg, opt_lib.AdamWConfig(),
+                                         remat=True)
+        built_ms, host_ms, worst = [], [], 0.0
+        for i, b in enumerate(batches):
+            bd = steps.place(bundle.abstract_args[2], b, mesh)
+            sync()
+            t = time.perf_counter()
+            params, opt, st = drive(bundle.fn, params, opt, bd)
+            built_ms.append((time.perf_counter() - t) * 1e3)
+            sync()
+            t = time.perf_counter()
+            host, host_opt, hst = host_step(host, host_opt, b)
+            sync()
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            for k in ("loss", "grad_norm", "lr"):
+                check(same_bits(st[k], hst[k]),
+                      f"launch: step {i} {k} {float(local(st[k]))} against "
+                      f"the host step's {float(hst[k])}")
+            for (n, p), q in zip(params.named_parameters(),
+                                 host.parameters()):
+                if not same_bits(p, q):
+                    worst = max(worst, max_diff(local(p).float(), q.float()))
+                    check(False, f"launch: step {i} parameter {n} differs "
+                          f"from the host step's (max abs {worst:.3g})")
+            # a temporary: a name would keep the moments alive
+            check(all(same_bits(a, b) for a, b in zip(
+                [*opt.m.parameters(), *opt.v.parameters()],
+                [*host_opt.m.parameters(), *host_opt.v.parameters()]))
+                and same_bits(opt.step, host_opt.step),
+                f"launch: step {i} AdamW state differs from the host "
+                "step's")
+            losses = (float(local(st["loss"])), float(hst["loss"]))
+            print(f"launch: {cfg.name} built step {i}: loss {losses[0]:.6f} "
+                  f"(host {losses[1]:.6f}), grad_norm "
+                  f"{float(local(st['grad_norm'])):.6g}, "
+                  f"{built_ms[-1]:.1f} ms built, {host_ms[-1]:.1f} ms host; "
+                  "loss, grad_norm, lr and every parameter and moment "
+                  "bitwise")
+        # the recorded step (untimed): the roofline's FLOPs
+        bd = steps.place(bundle.abstract_args[2], batches[0], mesh)
+        rec = analysis.Recorder()
+        with rec:
+            params, opt, _ = bundle.fn(params, opt, bd)
+        sync()
+        tokens = math.prod(batches[0]["tokens"].shape)
+        step_s = built_ms[-1] / 1e3  # the second step: DTensor's caches warm
+        model_flops = dryrun.model_flops_of(cfg, shape)
+        ms = shd.mesh_shape(mesh)
+        mem = analysis.analytic_memory_bytes(
+            cfg, shape, ms, steps.accum_for(cfg, shape), "train",
+            Pm.bytes_of(api.init_specs(cfg)), remat=True)
+        rl = analysis.roofline(rec.flops, mem, {}, model_flops, 1, H100)
+        mfu = model_flops / (H100.peak_flops_bf16 * step_s)
+        roof = (f"launch: roofline {cfg.name} train {shape.global_batch} x "
+                f"{shape.seq_len} accum {shape.accum} on 1 card ({H100.name} "
+                f"constants): model_flops {model_flops:.6g}, recorded "
+                f"{rec.flops:.6g} FLOPs, analytic {mem:.6g} bytes, roofline "
+                f"step {rl.step_time_s * 1e3:.3f} ms ({rl.dominant}; compute "
+                f"{rl.compute_s * 1e3:.3f} ms, memory "
+                f"{rl.memory_s * 1e3:.3f} ms), measured step "
+                f"{step_s * 1e3:.1f} ms, MFU {mfu:.4f}, roofline fraction "
+                f"{rl.step_time_s / step_s:.4f}, {tokens / step_s:.0f} "
+                f"tokens/s; build {t_build:.2f} s; {card}")
+        del params, opt, host, host_opt, bundle, st, hst
+        if on_card:
+            torch.cuda.empty_cache()
+        t_train = time.perf_counter() - t_phase
+        # the dry run (CPU only, its own process) runs beside the rest
+        dry_out = tempfile.TemporaryDirectory()
+        t_dry = time.perf_counter()
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "olmo-1b", "--shape", "decode_32k", "--mesh", "single",
+             "--force", "--out", dry_out.name], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                     CUDA_VISIBLE_DEVICES=""))
+        t_moe = time.perf_counter()
+
+        # ---- the collectives on the rank
+        E, C, d = 64, 688, 2048
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        x = torch.randn((E, C, d), generator=g, device=device).to(
+            torch.bfloat16)
+        xd = shd.distribute(x, mesh, (None, "model"))
+        disp = coll.expert_all_to_all_dispatch(xd, mesh, "model")
+        back = coll.expert_all_to_all_combine(disp, mesh, "model")
+        sync()
+        check(same_bits(disp, x) and same_bits(back, x),
+              "launch: the expert all-to-all's round trip is not bitwise")
+        gr = torch.randn((8, 4096), generator=g, device=device)
+        er = 0.1 * torch.randn((8, 4096), generator=g, device=device)
+        approx, err = coll.compressed_psum(gr, er, mesh, "data")
+        check(torch.equal(approx, gr + er) and not err.any(),
+              "launch: compressed_psum's one-rank path is not grad + err "
+              "with zero error")
+        print(f"launch: collectives on the one-rank "
+              f"{dist.get_backend()} group: expert all-to-all dispatch and "
+              f"combine of ({E}, {C}, {d}) bf16 bitwise, compressed_psum's "
+              f"one-rank path grad + err exactly, zero error; {card}")
+        del x, xd, disp, back, gr, er, approx, err
+
+        # ---- qwen2-moe: expert-parallel serving against the dense one
+        moe_arch = moe_cfg.name
+        mcfg = steps.apply_variant(moe_cfg, "opt")
+        check(mcfg.num_experts + mcfg.expert_pad == 64 or not published[1],
+              f"launch: {mcfg.num_experts} + {mcfg.expert_pad} experts")
+        specs = api.init_specs(mcfg)
+        t0 = time.perf_counter()
+        tree = Pm.materialize(specs, torch.Generator(device=device)
+                              .manual_seed(seed + 2), device)
+        model = api.params_module(mcfg, shd.distribute_tree(
+            tree, specs, mesh, steps.default_rules(get_shape("prefill_32k"))))
+        n_moe = api.count_params(moe_cfg)
+        check(not published[1] or n_moe == published[1],
+              f"launch: {moe_arch} count_params {n_moe}")
+        sync()
+        t_draw = time.perf_counter() - t0
+        B, S = prefill
+        max_len = S + decode_steps
+        toks = batches[0]["tokens"].reshape(-1, batches[0]["tokens"].shape
+                                            [-1])[:B, :S].to(torch.int32)
+        pshape = dataclasses.replace(get_shape("prefill_32k"),
+                                     global_batch=B, seq_len=S)
+        dshape = dataclasses.replace(get_shape("decode_32k"),
+                                     global_batch=B, seq_len=max_len)
+        t0 = time.perf_counter()
+        pre = steps.build(mcfg, pshape, mesh)
+        dec = steps.build(mcfg, dshape, mesh)
+        t_mbuild = time.perf_counter() - t0
+        runs = {}
+        for impl in ("ep", "dense"):
+            with flags.moe_impl(impl):
+                tb = steps.place(pre.abstract_args[1], {"tokens": toks},
+                                 mesh)
+                (last, cache), s_pre = synced(lambda: pre.fn(model, tb),
+                                              sync)
+                cache = api.decode_cache_layout(mcfg, cache, max_len)
+                tok = torch.argmax(local(last), -1).to(torch.int32)[:, None]
+                logits, secs = [local(last)], []
+                for i in range(decode_steps):
+                    td = steps.place(dec.abstract_args[3], tok, mesh)
+                    (lg, cache), s = synced(
+                        lambda: dec.fn(model, cache, S + i, td), sync)
+                    secs.append(s)
+                    logits.append(local(lg))
+                    tok = torch.argmax(local(lg)[:, -1], -1).to(
+                        torch.int32)[:, None]
+                runs[impl] = (logits, s_pre, secs)
+                del cache
+        ep, dense = runs["ep"][0], runs["dense"][0]
+        times = runs
+        check(all(torch.isfinite(t).all() for t in ep) and all(
+            same_bits(a, b) for a, b in zip(ep, dense)),
+              "launch: the expert-parallel logits differ from the dense "
+              "dispatch's")
+        # a decode step against forward one token longer, with a capacity
+        # that drops no slot: the forward's extra token shifts every
+        # later slot's arrival order, and a dropped slot differs by design
+        nodrop = dataclasses.replace(mcfg, capacity_factor=(
+            mcfg.num_experts / mcfg.num_experts_per_tok))
+        # (one row: a capacity of every token holds 4x the buffers at B 4)
+        bf16_err = max_diff(*decode_and_forward(
+            nodrop, model, api.params_module(nodrop, tree), toks[:1], mesh,
+            max_len))
+        del model, tree, ep, dense
+        if on_card:
+            torch.cuda.empty_cache()
+        # the fp32 check at the same width cut to MOE_CHECK_UNITS layers
+        small = api.with_depth(nodrop, MOE_CHECK_UNITS)
+        sspecs = api.init_specs(small)
+        stree = Pm.tree_map_specs(lambda t: t.float(), Pm.materialize(
+            sspecs, torch.Generator(device=device).manual_seed(seed + 3),
+            device))
+        f32_err = held(*decode_and_forward(
+            small, api.params_module(small, shd.distribute_tree(
+                stree, sspecs, mesh, shd.BASELINE_RULES)),
+            api.params_module(small, stree), toks, mesh, max_len),
+            f"launch: {moe_arch} fp32 decode step and forward")
+        del stree
+        if on_card:
+            torch.cuda.empty_cache()
+        t_moe = time.perf_counter() - t_moe
+        timing = {impl: (r[1] * 1e3, statistics.median(r[2]) * 1e3)
+                  for impl, r in times.items()}
+        print(f"launch: {moe_arch} at width d_model {mcfg.d_model}, "
+              f"{mcfg.num_layers} layers, {mcfg.num_experts} + "
+              f"{mcfg.expert_pad} padded experts (opt variant), top-"
+              f"{mcfg.num_experts_per_tok}; count_params {n_moe} "
+              f"(published), {api.count_params(mcfg)} with the padding, "
+              f"drawn on {device} in {t_draw:.2f} s; build_prefill and "
+              f"build_decode {t_mbuild:.2f} s; prefill {B} x {S} and "
+              f"{decode_steps} greedy decode steps (cache {max_len}) under "
+              f"moe_impl('ep') and ('dense'): every logit bitwise equal; "
+              f"prefill {timing['ep'][0]:.1f} ms ep / "
+              f"{timing['dense'][0]:.1f} ms dense, decode step (median) "
+              f"{timing['ep'][1]:.2f} ms ep / {timing['dense'][1]:.2f} ms "
+              f"dense; decode step against forward one token longer (a "
+              f"capacity that drops no slot): fp32 at {MOE_CHECK_UNITS} "
+              f"layers max abs {f32_err:.3g} (tolerance {MODEL_TOL}), bf16 "
+              f"at {mcfg.num_layers} layers (B = 1) {bf16_err:.3g}; "
+              f"{t_moe:.2f} s with the collectives; {card}")
+        print(roof)
+        print(f"launch: the {cfg.name} part (corpus, checks, 5 steps) in "
+              f"{t_train:.2f} s")
+    except BaseException:
+        if dry is not None:  # stop the dry run this phase started
+            dry.kill()
+            dry.communicate()
+            dry_out.cleanup()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+    try:
+        stdout, stderr = dry.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if dry.poll() is None:  # over its time limit, or this phase failed
+            dry.kill()
+            dry.communicate()
+        dry_out.cleanup()
+    check(dry.returncode == 0 and "\n0 failures" in stdout,
+          f"launch: the dry run failed:\n{stdout[-3000:]}{stderr[-3000:]}")
+    lines = [ln.strip() for ln in stdout.splitlines()
+             if "dominant=" in ln or "mem/device" in ln]
+    print(f"launch: dry run olmo-1b decode_32k on a 256-rank fake group "
+          f"(16 x 16 mesh, meta DTensors), beside the MoE part, done "
+          f"{time.perf_counter() - t_dry:.2f} s after its start: 0 "
+          f"failures; " + "; ".join(lines))
+    return launches
+
+
 def print_records(recs, names) -> None:
     """One line per kernel record; ``names`` label records that carry no
     ``name`` of their own."""
@@ -3531,19 +3928,30 @@ def main() -> int:
                           "cuda", torch.cuda.synchronize, smi[0], args.seed,
                           TRAIN_PARAMS)
     print(f"train phase: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launched = launch_phase(get_config(TRAIN_ARCH), get_config(MOE_ARCH),
+                            PIPE_CORPUS, TRAIN_QUERY, "cuda",
+                            torch.cuda.synchronize, smi[0], args.seed)
+    print(f"launch phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
     launches = {n: engine[n] + tensor[n] + costed[n] + comp[n] + sec42[n]
                 + cached[n] + faulted[n] + streamed[n] + traced[n]
-                + tiered[n] + piped[n] + trained[n] for n in records}
+                + tiered[n] + piped[n] + trained[n] + launched[n]
+                for n in records}
     print("kernels: " + "; ".join(
         f"{n} check=ok launches={launches[n]} (engine {engine[n]}, tensor "
         f"{tensor[n]}, costed {costed[n]}, compiler {comp[n]}, section 4.2 "
         f"{sec42[n]}, cache {cached[n]}, faults {faulted[n]}, stream "
         f"{streamed[n]}, trace {traced[n]}, tier {tiered[n]}, pipeline "
-        f"{piped[n]}, train {trained[n]})" for n in records))
+        f"{piped[n]}, train {trained[n]}, launch {launched[n]})"
+        for n in records))
     for n in records:
         check(launches[n] > 0, f"{n} never launched on the main path")
     check(trained["fused_scan_shuffle"] > 0,
           "fused_scan_shuffle never launched in the train phase")
+    check(launched["fused_scan_shuffle"] > 0,
+          "fused_scan_shuffle never launched in the launch phase")
     # each query's stages calling grouped_agg is checked in tensor_phase
     check(tensor["grouped_agg"] > 0,
           "grouped_agg never launched in the tensor phase's driven runs")

@@ -13,7 +13,9 @@ Scores accumulate in fp32 (the bf16 operands widen to fp32 exactly, which is
 what the reference's ``preferred_element_type=float32`` computes), are
 scaled by ``sqrt(hd)`` in fp32, masked with ``NEG_INF``, softmaxed in fp32
 and cast to the query's dtype before the value product. Plain torch ops;
-no fused attention kernel.
+no fused attention kernel. The batched products go through
+``constraints.einsum``: ``torch.einsum`` itself on plain tensors, each
+rank's blocks on DTensors.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.constraints import cs, einsum, mesh_axis_size
 from repro_torch.models import flags
 from repro_torch.models.layers import apply_rope, rms_norm_1d
 from repro_torch.models.params import p
@@ -53,10 +56,16 @@ def attn_specs(cfg: ModelConfig, stack: tuple = ()):
 
 
 def qkv_proj(x, prm, cfg: ModelConfig, positions, rope: bool = True):
-    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
-    q = torch.einsum("bsd,dhk->bshk", x, prm["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, prm["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, prm["wv"])
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd).
+
+    q: heads -> TP axis; when the head count doesn't divide it, the
+    `attn_seq` fallback context-parallelizes the query sequence instead."""
+    q = cs(torch.einsum("bsd,dhk->bshk", x, prm["wq"]),
+           "batch", "attn_seq", "heads", None)
+    k = cs(torch.einsum("bsd,dhk->bshk", x, prm["wk"]),
+           "batch", None, "kv_heads", "kv_hd")
+    v = cs(torch.einsum("bsd,dhk->bshk", x, prm["wv"]),
+           "batch", None, "kv_heads", "kv_hd")
     if cfg.qkv_bias:
         q, k, v = q + prm["bq"], k + prm["bk"], v + prm["bv"]
     if cfg.qk_norm:
@@ -69,7 +78,8 @@ def qkv_proj(x, prm, cfg: ModelConfig, positions, rope: bool = True):
 
 
 def attn_out(y, prm):
-    return torch.einsum("bshk,hkd->bsd", y, prm["wo"])
+    return cs(torch.einsum("bshk,hkd->bsd", y, prm["wo"]),
+              "batch", "act_seq", None)
 
 
 def _group(q, num_kv):
@@ -79,7 +89,7 @@ def _group(q, num_kv):
 
 
 def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.einsum(eq, a.float(), b.float())
+    return einsum(eq, a.float(), b.float())
 
 
 def _scale(hd: int) -> float:
@@ -113,21 +123,25 @@ def attention(q, k, v, cfg: ModelConfig, kind: str = "causal", width: int = 0,
     if kv_pos is None:
         kv_pos = torch.arange(Sk, device=q.device)
     keep = _mask(q_pos, kv_pos, kind, width)
-    if flags.current_attn_impl() == "flat" and H != KV:
+    flat_ok = H % max(1, mesh_axis_size("model")) == 0  # else the repeated
+    # K/V can't shard on heads and replicates (B,Sk,H,hd) per layer
+    if flags.current_attn_impl() == "flat" and H != KV and flat_ok:
         # K/V repeated to the head dim; on one device the same values as
         # the grouped form
-        kf = torch.repeat_interleave(k, H // KV, dim=2)
-        vf = torch.repeat_interleave(v, H // KV, dim=2)
+        kf = cs(torch.repeat_interleave(k, H // KV, dim=2),
+                "batch", None, "heads", None)
+        vf = cs(torch.repeat_interleave(v, H // KV, dim=2),
+                "batch", None, "heads", None)
         s = _f32_einsum("bshd,bthd->bhst", q, kf)
         s = torch.where(keep, s / _scale(hd), NEG_INF)
         w = torch.softmax(s, dim=-1).to(q.dtype)
-        return torch.einsum("bhst,bthd->bshd", w, vf)
+        return einsum("bhst,bthd->bshd", w, vf)
     qg = _group(q, KV)
     scores = _f32_einsum("bskgh,btkh->bkgst", qg, k)
     scores = scores / _scale(hd)
     scores = torch.where(keep, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    y = torch.einsum("bkgst,btkh->bskgh", w, v)
+    y = einsum("bkgst,btkh->bskgh", w, v)
     return y.reshape(B, Sq, H, hd)
 
 
@@ -173,7 +187,7 @@ def blockwise_attention(q, k, v, cfg: ModelConfig, kind: str = "causal",
             bm = s.amax(-1)
             e = torch.exp(s - bm[..., None])
             bl = e.sum(-1)
-            bo = torch.einsum("bnkgqt,btkh->bnkgqh", e.to(v.dtype), vj)
+            bo = einsum("bnkgqt,btkh->bnkgqh", e.to(v.dtype), vj)
             mn = torch.maximum(m, bm)
             a1, a2 = torch.exp(m - mn), torch.exp(bm - mn)
             return (mn, l * a1 + bl * a2,
@@ -197,7 +211,7 @@ def blockwise_attention(q, k, v, cfg: ModelConfig, kind: str = "causal",
             bm = s.amax(-1)
             e = torch.exp(s - bm[..., None])
             bl = e.sum(-1)
-            bo = torch.einsum("bkgqt,btkh->bkgqh", e.to(v.dtype), vj)
+            bo = einsum("bkgqt,btkh->bkgqh", e.to(v.dtype), vj)
             mi, li, oi = m[:, i], l[:, i], o[:, i]
             mn = torch.maximum(mi, bm)
             a1, a2 = torch.exp(mi - mn), torch.exp(bm - mn)
@@ -222,7 +236,8 @@ def local_chunk_attention(q, k, v, cfg: ModelConfig, chunk: int,
     multiple of 1024) the blockwise online softmax bounds the scores."""
     B, S, H, hd = q.shape
     nc = S // chunk
-    fold = lambda t: t.reshape(B * nc, chunk, *t.shape[2:])  # noqa: E731
+    fold = lambda t: cs(t.reshape(B * nc, chunk, *t.shape[2:]),  # noqa: E731
+                        "batch", "attn_seq", None, None)
     qf, kf, vf = fold(q), fold(k), fold(v)
     if blockwise and chunk % 1024 == 0 and chunk > 1024:
         y = blockwise_attention(qf, kf, vf, cfg, kind="causal")
@@ -243,8 +258,11 @@ def local_window_attention(q, k, v, cfg: ModelConfig, window: int):
     w = window
     nb = S // w
     dev = q.device
-    qb = q.reshape(B, nb, w, KV, G, hd)
-    kb, vb = k.reshape(B, nb, w, KV, hd), v.reshape(B, nb, w, KV, hd)
+    qb = cs(q.reshape(B, nb, w, KV, G, hd),
+            "batch", "attn_seq", None, "kv_heads", None, None)
+    blk = lambda t: cs(t.reshape(B, nb, w, KV, hd),  # noqa: E731
+                       "batch", "attn_seq", None, "kv_heads", None)
+    kb, vb = blk(k), blk(v)
 
     def pair(t):
         prev = torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], 1)
@@ -261,7 +279,7 @@ def local_window_attention(q, k, v, cfg: ModelConfig, window: int):
     keep = keep[None, :, :] & valid[:, None, :]  # (nb, w, 2w)
     s = torch.where(keep[None, :, None, None], s, NEG_INF)
     wts = torch.softmax(s, dim=-1).to(q.dtype)
-    y = torch.einsum("bnkgqt,bntkh->bnqkgh", wts, vp_)
+    y = einsum("bnkgqt,bntkh->bnqkgh", wts, vp_)
     return y.reshape(B, S, H, hd)
 
 
@@ -281,5 +299,5 @@ def decode_attention(q, k_cache, v_cache, pos, kind: str = "causal",
     keep = _mask(q_pos, kv_pos, kind, width)[0]  # (S,)
     s = torch.where(keep, s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(q.dtype)
-    y = torch.einsum("bkgt,btkh->bkgh", w, v_cache)
+    y = einsum("bkgt,btkh->bkgh", w, v_cache)
     return y.reshape(B, 1, H, hd)

@@ -4,9 +4,11 @@
   a (KV, G) split of the heads, the default) or ``"flat"`` (K/V repeated to
   the head dim). The two differ only in how they shard across a mesh; on
   one device they compute the same values.
-- ``moe_impl`` selects the MoE dispatch: ``"dense"`` only. The
-  expert-parallel ``"ep"`` dispatch needs the collectives of ROADMAP
-  queue 1's ``distributed/collectives.py`` item and raises until then.
+- ``moe_impl`` selects the MoE dispatch: ``"dense"`` (capacity dispatch
+  into an (E, C, d) buffer, the default) or ``"ep"`` (expert parallelism,
+  ``moe.apply_moe_ep``: inside an ``activation_sharding`` context each
+  rank runs only its experts; without a context, without a `model` axis
+  or with an expert count that does not divide it, the dense dispatch).
 - ``unroll_scans`` had the reference's cost pass unroll ``lax.scan``; the
   port's layer loops are Python loops already, so it changes nothing and
   stays for callers that use its name.
@@ -20,7 +22,10 @@ from typing import Any, Callable, Iterable, List, Tuple
 _ATTN_IMPL = contextvars.ContextVar("repro_torch_attn_impl",
                                     default="grouped")
 
+_MOE_IMPL = contextvars.ContextVar("repro_torch_moe_impl", default="dense")
+
 ATTN_IMPLS = ("grouped", "flat")
+MOE_IMPLS = ("dense", "ep")
 
 
 @contextlib.contextmanager
@@ -42,15 +47,18 @@ def maybe_scan(body: Callable, init: Any, xs: Iterable
 
 @contextlib.contextmanager
 def moe_impl(kind: str):
-    """``"dense"`` (capacity dispatch into an (E, C, d) buffer). ``"ep"``
-    raises ``NotImplementedError``."""
-    if kind == "ep":
-        raise NotImplementedError(
-            "moe_impl('ep') needs the expert all-to-all of ROADMAP queue 1's "
-            "distributed/collectives.py item, not yet ported")
-    if kind != "dense":
-        raise ValueError(f"unknown moe_impl {kind!r}")
-    yield
+    """``"dense"`` or ``"ep"`` (see the module docstring)."""
+    if kind not in MOE_IMPLS:
+        raise ValueError(f"unknown moe_impl {kind!r}; expected {MOE_IMPLS}")
+    tok = _MOE_IMPL.set(kind)
+    try:
+        yield
+    finally:
+        _MOE_IMPL.reset(tok)
+
+
+def current_moe_impl() -> str:
+    return _MOE_IMPL.get()
 
 
 @contextlib.contextmanager

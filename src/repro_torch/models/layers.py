@@ -2,8 +2,8 @@
 ``repro.models.layers``).
 
 All norms and RoPE compute in fp32 and cast back; params live in bf16.
-The reference's sharding constraints (``cs``) do nothing on one device and
-are dropped. ``silu`` and ``gelu_tanh`` compute as ``jax.nn.silu`` and
+The reference's activation anchors (``cs``) are kept at the same sites;
+they do nothing outside an ``activation_sharding`` context. ``silu`` and ``gelu_tanh`` compute as ``jax.nn.silu`` and
 ``jax.nn.gelu`` do in bf16: one rounding after each op of their formulas
 (``F.silu`` and ``F.gelu`` round once, which moves about a third of bf16
 outputs by one ulp).
@@ -15,6 +15,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.constraints import cs
 from repro_torch.models.params import p
 
 
@@ -113,10 +114,14 @@ def mlp_specs(cfg: ModelConfig, stack: tuple = (), d_ff: int | None = None):
 
 
 def apply_mlp(x: torch.Tensor, prm, cfg: ModelConfig) -> torch.Tensor:
+    nb = x.ndim - 1  # leading dims before the feature dim ((B,S,d) or (T,d))
+    hid = ("batch",) + ("act_seq",) * (nb - 1) + ("mlp",)
+    res = ("batch",) + ("act_seq",) * (nb - 1) + (None,)
     if "w_in" in prm:  # gelu: jax.nn.gelu's default is the tanh form
-        return gelu_tanh(x @ prm["w_in"]) @ prm["w_out"]
-    g = silu(x @ prm["w_gate"])
-    return (g * (x @ prm["w_up"])) @ prm["w_out"]
+        h = cs(gelu_tanh(x @ prm["w_in"]), *hid)
+        return cs(h @ prm["w_out"], *res)
+    g = cs(silu(x @ prm["w_gate"]), *hid)
+    return cs((g * cs(x @ prm["w_up"], *hid)) @ prm["w_out"], *res)
 
 
 # ----------------------------------------------------------------- embeddings
@@ -129,7 +134,8 @@ def embed_specs(cfg: ModelConfig):
 
 
 def embed_tokens(prm, tokens: torch.Tensor) -> torch.Tensor:
-    return prm["embedding"][tokens]
+    x = prm["embedding"][tokens]
+    return cs(x, *(("batch",) + ("act_seq",) * (tokens.ndim - 1) + (None,)))
 
 
 def lm_logits(prm, x: torch.Tensor) -> torch.Tensor:
@@ -137,4 +143,5 @@ def lm_logits(prm, x: torch.Tensor) -> torch.Tensor:
     products accumulate in fp32 as the reference's
     ``preferred_element_type=float32`` does."""
     w = prm["lm_head"] if "lm_head" in prm else prm["embedding"].T
-    return x.float() @ w.float()
+    logits = x.float() @ w.float()
+    return cs(logits, *(("batch",) + ("act_seq",) * (x.ndim - 2) + ("vocab",)))

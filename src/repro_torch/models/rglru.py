@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.constraints import cs
 from repro_torch.models.layers import gelu_tanh
 from repro_torch.models.params import p
 from repro_torch.models.ssm import conv_window, shift_sum_conv
@@ -65,7 +66,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_forward(x: torch.Tensor, prm, cfg: ModelConfig,
                   init_state: Optional[torch.Tensor] = None):
     """x: (B, T, d_model) -> (y, final state (B, w) fp32)."""
-    u = shift_sum_conv(x @ prm["w_in"], prm["conv"])  # no activation
+    u = cs(x @ prm["w_in"], "batch", "act_seq", "inner")
+    u = shift_sum_conv(u, prm["conv"])  # no activation
     a, b = _gates(u, prm)
     if init_state is not None:
         # the carried state folds in as a virtual step 0:

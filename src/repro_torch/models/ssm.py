@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.constraints import cs
 from repro_torch.models.layers import rms_norm_1d, silu
 from repro_torch.models.params import p
 
@@ -81,8 +82,8 @@ def conv_window(hist: torch.Tensor, val: torch.Tensor, w: torch.Tensor):
 
 
 def _project(x, prm, cfg: ModelConfig):
-    z = x @ prm["wz"]
-    xc = x @ prm["wx"]
+    z = cs(x @ prm["wz"], "batch", "act_seq", "inner")
+    xc = cs(x @ prm["wx"], "batch", "act_seq", "inner")
     Bc = x @ prm["wB"]
     Cc = x @ prm["wC"]
     dt = (x @ prm["wdt"]).float()
@@ -116,7 +117,7 @@ def ssd_forward(x: torch.Tensor, prm, cfg: ModelConfig,
     Cc = _causal_conv(Cc, prm["conv_C"])
 
     A = -torch.exp(prm["A_log"])  # (H,) negative
-    xh = xc.reshape(Bsz, nc, Q, H, P)
+    xh = cs(xc.reshape(Bsz, nc, Q, H, P), "batch", None, None, "inner", None)
     Bh = Bc.reshape(Bsz, nc, Q, N).float()
     Ch = Cc.reshape(Bsz, nc, Q, N).float()
     dth = dt.reshape(Bsz, nc, Q, H)  # fp32

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.constraints import cs
 from repro_torch.models.attention import (attention, attn_out, attn_specs,
                                           blockwise_attention,
                                           decode_attention,
@@ -319,7 +320,8 @@ def cache_update(c, new, slot):
     new tensor (a masked select, as the reference's)."""
     mask = (torch.arange(c.shape[1], device=c.device) == slot
             )[None, :, None, None]
-    return torch.where(mask, new.to(c.dtype), c)
+    c = torch.where(mask, new.to(c.dtype), c)
+    return cs(c, "batch", "kv_seq", "kv_heads", None)
 
 
 def _decode_sublayer(x, blk: Block, cfg, pos, kc, vc, kind, width,

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.constraints import cs_like
 from repro_torch.models.api import init_params, loss_fn
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.checkpoint import CheckpointManager, PreemptionGuard
@@ -40,6 +41,34 @@ class TrainConfig:
         default_factory=opt_lib.AdamWConfig)
 
 
+def grad_sums(params, cfg: ModelConfig, batch, *,
+              remat: Union[bool, str] = False):
+    """Gradient sums over an (accum, mb, S) batch: ``loss_fn`` and backward
+    once per microbatch, each microbatch's gradients (in the parameters'
+    dtype) added into fp32 sums (zeros of each parameter's layout; inside
+    an activation-sharding context ``cs_like`` puts a gradient into its
+    parameter's placements first, the identity elsewhere). Returns (the
+    sums in ``parameters()`` order, the microbatch losses)."""
+    plist = list(params.parameters())
+    gsum = [torch.zeros_like(p, dtype=torch.float32) for p in plist]
+    accum = batch["tokens"].shape[0]
+    losses = []
+    params.requires_grad_(True)
+    try:
+        for i in range(accum):
+            loss = loss_fn(params, cfg, {k: v[i] for k, v in batch.items()},
+                           remat=remat)
+            grads = torch.autograd.grad(loss, plist, allow_unused=True)
+            for s, g, p in zip(gsum, grads, plist):
+                if g is not None:  # unused: the reference's zeros
+                    s += cs_like(g.float(), p)
+            losses.append(loss.detach())
+            del loss, grads
+    finally:
+        params.requires_grad_(False)
+    return gsum, losses
+
+
 def make_host_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
                          remat: Union[bool, str] = False):
     """``step(params, opt, batch) -> (params, opt, stats)`` over an
@@ -50,26 +79,9 @@ def make_host_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig,
     def step_fn(params, opt, batch):
         dev = params.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        plist = list(params.parameters())
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                for p in plist]
-        accum = batch["tokens"].shape[0]
-        losses = []
-        params.requires_grad_(True)
-        try:
-            for i in range(accum):
-                loss = loss_fn(params, cfg, {k: v[i] for k, v in
-                                             batch.items()}, remat=remat)
-                grads = torch.autograd.grad(loss, plist, allow_unused=True)
-                for s, g in zip(gsum, grads):
-                    if g is not None:  # unused: the reference's zeros
-                        s += g.float()
-                losses.append(loss.detach())
-                del loss, grads
-        finally:
-            params.requires_grad_(False)
+        gsum, losses = grad_sums(params, cfg, batch, remat=remat)
         for s in gsum:
-            s /= accum
+            s /= len(losses)
         params, opt, stats = opt_lib.apply(opt_cfg, params, opt, gsum)
         return params, opt, {"loss": torch.stack(losses).mean(), **stats}
 

@@ -1467,3 +1467,77 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
         logits, _ = api.prefill(model, cfg, {"tokens": batch["tokens"][0].to(
             cuda)})
     assert len(out[0]) == 4 and logits.grad_fn is None
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1, 1) mesh over a one-rank NCCL group (a ``HashStore``: nothing
+    listens), destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e"])
+def test_expert_parallel_moe_equals_dense_on_one_nccl_rank(nccl_mesh, arch):
+    """``apply_moe_ep`` on a one-rank mesh computes what the dense dispatch
+    computes, bit for bit: outputs and ``aux``. The input gradients sum the
+    same three contributions (router, experts, shared MLP) in another order
+    (the shared MLP reads the DTensor outside the expert-parallel body, as
+    the reference's does), so they are held to bf16's rounding."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.constraints import activation_sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import api, flags, moe
+    cfg = steps.apply_variant(get_config(arch, reduced=True), "opt")
+    m = shd.tree_shardings(api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+        nccl_mesh)
+    prm = m.blocks[0]["ffn"]
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda").to(torch.bfloat16)
+    out = {}
+    for impl in ("ep", "dense"):
+        xd = shd.distribute(x.clone().requires_grad_(True), nccl_mesh,
+                            ("data",))
+        with activation_sharding(nccl_mesh), implicit_replication(), \
+                flags.moe_impl(impl):
+            y, aux = moe.apply_moe(xd, prm, cfg)
+            (gx,) = torch.autograd.grad(
+                y.float().square().sum() + aux, xd)
+        out[impl] = [t.to_local() for t in (y, aux, gx)]
+    for a, b in zip(out["ep"][:2], out["dense"][:2]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(out["ep"][2].float(), out["dense"][2].float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_collectives_on_one_nccl_rank(nccl_mesh):
+    """The expert all-to-all's round trip is the identity and
+    ``compressed_psum``'s one-rank path returns grad + err exactly with a
+    zero error."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((8, 16, 32), generator=g, device="cuda")
+    xd = shd.distribute(x, nccl_mesh, (None, "model"))
+    disp = coll.expert_all_to_all_dispatch(xd, nccl_mesh, "model")
+    back = coll.expert_all_to_all_combine(disp, nccl_mesh, "model")
+    assert torch.equal(disp.to_local(), x) and torch.equal(back.to_local(), x)
+    # a plain tensor is this rank's block
+    assert torch.equal(coll.expert_all_to_all_combine(
+        coll.expert_all_to_all_dispatch(x, nccl_mesh), nccl_mesh), x)
+    grad = torch.randn((8, 64), generator=g, device="cuda")
+    err = 0.1 * torch.randn((8, 64), generator=g, device="cuda")
+    approx, new_err = coll.compressed_psum(grad, err, nccl_mesh, "data")
+    assert torch.equal(approx, grad + err) and not new_err.any()

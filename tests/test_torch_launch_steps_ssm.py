@@ -1,0 +1,7 @@
+"""``tests/test_torch_launch_steps.py``'s comparison for mamba2-2.7b's
+reduced config (its own file, so that the three run in parallel)."""
+from torch_steps import check_steps
+
+
+def test_built_steps_match_the_reference_compiled_steps(tmp_path):
+    check_steps(tmp_path, "mamba2-2.7b")

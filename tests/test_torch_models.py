@@ -409,8 +409,13 @@ def test_layers_match_the_reference(norm_type, mlp_act):
 
 
 def test_moe_flags():
-    with pytest.raises(NotImplementedError, match="collectives"):
-        with flags.moe_impl("ep"):
+    # "ep" selects the expert-parallel dispatch; outside an
+    # activation_sharding context it falls back to the dense one
+    with flags.moe_impl("ep"):
+        assert flags.current_moe_impl() == "ep"
+    assert flags.current_moe_impl() == "dense"
+    with pytest.raises(ValueError, match="moe_impl"):
+        with flags.moe_impl("shard_map"):
             pass
     with flags.moe_impl("dense"), flags.unroll_scans():
         assert flags.current_attn_impl() == "grouped"

@@ -24,7 +24,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_batch_torch.py",
-     ROOT / "examples" / "train_pushdown_pipeline_torch.py"]
+     ROOT / "examples" / "train_pushdown_pipeline_torch.py",
+     ROOT / "examples" / "quickstart_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -56,7 +57,10 @@ def test_the_rules_cover_the_cost_based_modules():
             "configs/mamba2_2_7b.py", "configs/recurrentgemma_2b.py",
             "configs/whisper_small.py", "train/__init__.py",
             "train/optimizer.py", "train/checkpoint.py",
-            "train/loop.py"} <= names
+            "train/loop.py", "distributed/sharding.py",
+            "distributed/constraints.py", "distributed/collectives.py",
+            "launch/__init__.py", "launch/mesh.py", "launch/steps.py",
+            "launch/analysis.py", "launch/dryrun.py"} <= names
 
 
 def _start_methods(path: Path):
@@ -75,8 +79,10 @@ def test_the_process_tier_spawns_its_workers():
     the port's workers are spawned, and nothing in the port forks."""
     dist = sorted((ROOT / "src" / "repro_torch" / "distributed").rglob(
         "*.py"))
-    assert [p.name for p in dist] == ["__init__.py", "workers.py"]
-    assert list(_start_methods(dist[1])) == ["spawn"]
+    assert [p.name for p in dist] == ["__init__.py", "collectives.py",
+                                      "constraints.py", "sharding.py",
+                                      "workers.py"]
+    assert list(_start_methods(dist[-1])) == ["spawn"]
     for path in PORT_FILES:
         assert "fork" not in set(_start_methods(path)), path
         assert "os.fork" not in path.read_text(), path
@@ -87,6 +93,27 @@ def test_the_process_tier_spawns_its_workers():
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_launch_layer_imports_no_jax():
+    """``launch/`` (meshes, step builders, the dry run) stands on torch
+    alone: its files import neither JAX nor the JAX package, and its
+    modules load without them."""
+    launch = sorted((ROOT / "src" / "repro_torch" / "launch").rglob("*.py"))
+    assert [p.name for p in launch] == ["__init__.py", "analysis.py",
+                                        "dryrun.py", "mesh.py", "steps.py"]
+    for path in launch:
+        assert not [m for m in _imported_roots(path) if m in FORBIDDEN], path
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.steps\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
 
 
 def _env():
