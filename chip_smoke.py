@@ -43,6 +43,16 @@ GPU is present. Phases:
    at power 0.1 Q1 and Q3 must split between pushdown and pushback; the
    splits and bytes of Q1, Q3, Q6, Q12 and Q19 are compared with the hand-
    built plans' (``PR14_ADAPTIVE_LOW``).
+   Narrow (after the engine phase): the catalog re-stored at TPC-H's
+   narrowest widths (``NARROW``: uint8 codes, int16 dates, a uint16
+   quantity, uint32 keys) by casting each column on the card; all 15
+   queries eager and adaptive at power 1.0 held to the engine phase's
+   wide results (bitwise, or in rows with sums within ``SUM_RTOL``) with
+   their keys in the narrow dtypes, both catalogs' real bytes printed; a
+   Q19 Fig-3 apply and the Q3 and Q12 shuffle plans over the narrow
+   partitions (every kernel must launch); then each of the six kernels on
+   narrow columns held to its plain version, its ms beside the wide
+   launch's and a bound from the narrow bytes.
 4. Tensor: the residual's tensor backend (``EngineConfig.residual=
    "tensor"``) on the same catalog. Each query compiled once, one
    observe pass through ``run_query``, the interpreter's and the tensor
@@ -115,7 +125,7 @@ GPU is present. Phases:
    Chrome trace (in a temporary directory) under ``torch.profiler``: each
    span name's self time (``span_attribution``), the device's busy time
    and idle share (``1 - busy / wall``) over the same window; then the
-   stream untraced and traced five times each, ``gc.collect()`` before
+   stream untraced and traced three times each, ``gc.collect()`` before
    every run, and their medians.
 12. Process tier: one spawned storage-worker process per node (4), each
    holding its node's partitions on the card (shipped over the wire
@@ -206,7 +216,8 @@ GPU is present. Phases:
    the measured step) and its MFU; the dry run of olmo-1b decode_32k on
    a 256-rank fake group, in a subprocess beside the MoE part (``0
    failures``).
-17. Prints each kernel's launches in phases 3 to 16 (all must be above 0,
+17. Prints each kernel's launches in phases 3 to 16 and the narrow phase
+   (all must be above 0,
    and on the tier ``predicate_bitmap``, ``fused_scan_agg`` and the two
    shuffle kernels inside the workers, ``grouped_agg`` in the parent's
    residuals), the per-kernel JSON line and, last, the ``{"ok": true,
@@ -247,6 +258,18 @@ PR14_ADAPTIVE_LOW = {"Q1": (36, 64, 599_001_920), "Q3": (60, 72, 865_100_164),
                      "Q19": (36, 80, 601_183_684)}
 CLUSTER = {"lineitem": "l_orderkey"}
 NODES, RPP = 4, 600_000       # storage nodes; rows of a lineitem partition
+# TPC-H's columns at their narrowest widths (the narrow phase): dictionary
+# codes and small keys in one byte, dates as int16 day numbers, the
+# quantity in stock as uint16; the other integer columns (keys) uint32 and
+# float64 ones kept
+NARROW = ((torch.uint8, ("r_regionkey", "n_nationkey", "n_regionkey",
+                         "s_nationkey", "c_nationkey", "c_mktsegment",
+                         "p_brand", "p_type", "p_size", "p_container",
+                         "o_orderpriority", "o_shippriority", "l_returnflag",
+                         "l_linestatus", "l_shipinstruct", "l_shipmode")),
+          (torch.int16, ("o_orderdate", "l_shipdate", "l_commitdate",
+                         "l_receiptdate")),
+          (torch.uint16, ("ps_availqty",)))
 SHUFFLE_TARGETS = 4           # compute nodes of the §4.2 shuffle
 CACHE_BUDGET = 2 << 30        # holds one query's pushed results (Q8 eager
 #                               ships the most, 1,270,490,848 bytes)
@@ -1080,6 +1103,330 @@ def engine_phase(cat, sync, results=None):
     print(f"engine: peak over the timed runs "
           f"{f'{max(peaks):.2f} GB' if on_card else 'not measured'}")
     return kernels.launches()
+
+
+# ------------------------------------------------------------ narrow phase
+def narrow_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """A TPC-H column's narrowest width (``NARROW``), float64 kept."""
+    if dtype == torch.float64:
+        return dtype
+    return next((dt for dt, names in NARROW if name in names), torch.uint32)
+
+
+def narrow_catalog(cat):
+    """``cat`` re-stored at TPC-H's narrowest widths, each column cast on
+    the card table by table, in the same partitions on the same nodes."""
+    from repro_torch.queryproc.table import ColumnTable
+    from repro_torch.storage.catalog import Catalog
+    ncat = Catalog(cat.num_nodes, cat.device)
+    for name, parts in cat.tables.items():
+        cols = {}
+        for c in parts[0].data.columns:
+            whole = torch.cat([p.data.cols[c] for p in parts])
+            cols[c] = whole.to(narrow_dtype(c, whole.dtype))
+            del whole
+        ncat.add_table(name, ColumnTable(cols), len(parts[0].data))
+    return ncat
+
+
+def widened(t, like):
+    """``t``'s columns cast to the dtypes of ``like``'s (integers through
+    their int64 values, which every narrow width keeps exactly)."""
+    from repro_torch.queryproc.table import ColumnTable, as_int64
+    return ColumnTable({c: v if v.dtype == like.cols[c].dtype else
+                        as_int64(v).to(like.cols[c].dtype)
+                        for c, v in t.cols.items()})
+
+
+def narrow_kernels(ncat, records, timer):
+    """Each kernel on narrow columns at the main path's shapes, held to its
+    plain version: bitwise, sums to ``SUM_RTOL``. Returns records with the
+    kernel's ms beside the wide launch's (``records``) and a bound from the
+    narrow bytes."""
+    from repro_torch.core.executor import compile_push_plan
+    from repro_torch.kernels import bitmap_apply as ba
+    from repro_torch.kernels import fused_scan_agg as fsa
+    from repro_torch.kernels import fused_scan_shuffle as fss
+    from repro_torch.kernels import grouped_agg as ga
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import predicate_bitmap as pb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import program_for
+    from repro_torch.queryproc import operators, queries
+    from repro_torch.queryproc.table import ColumnTable
+
+    plans = {q: queries.build_query(q).plans["lineitem"]
+             for q in ("Q1", "Q6", "Q19")}
+    li = ncat.scan_table("lineitem", [
+        "l_shipdate", "l_shipmode", "l_shipinstruct", "l_quantity",
+        "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+        "l_linestatus", "l_orderkey", "l_partkey"]).cols
+    R = li["l_shipdate"].shape[0]
+    out = []
+
+    def record(name, shape, kernel, err, n_bytes, n_ops):
+        b_ms, b_by = bound(n_bytes, n_ops)
+        ms = timer(kernel)
+        out.append(dict(name=name, shape=shape, ms=ms,
+                        wide_ms=records[name]["ms"], bound_ms=b_ms,
+                        bound_by=b_by, share=b_ms / ms, max_abs_err=err))
+
+    # predicate_bitmap: Q19's lineitem filter over uint8 codes and f64
+    prog = program_for(plans["Q19"].predicate, li)
+    cols = [li[c] for c in prog.columns]
+    words = pb.predicate_bitmap(prog, cols)
+    check(torch.equal(words, ref.predicate_bitmap(prog, cols)),
+          "narrow predicate_bitmap Q19: words differ")
+    record("predicate_bitmap", f"Q19 lineitem predicate, R={R}, "
+           f"{[str(c.dtype)[6:] for c in cols]}",
+           lambda: pb.predicate_bitmap(prog, cols), 0.0,
+           nbytes(*cols, words), R * prog.n_ops)
+
+    # fused_scan_agg: Q1's four sums under an int16 date predicate, keyed
+    # by uint8 codes; then Q6's predicate summing uint32 values
+    parts = [p.data for p in ncat.partitions_of("lineitem")]
+    seg = torch.repeat_interleave(
+        torch.arange(len(parts), device=li["l_shipdate"].device),
+        torch.as_tensor([len(p) for p in parts],
+                        device=li["l_shipdate"].device))
+    q1 = plans["Q1"]
+    q1_cols = dict(li)
+    for name, incols, fn in q1.derive:
+        q1_cols[name] = fn(*[li[c] for c in incols])
+    for case, q, keys, vals in (
+            ("Q1 partial agg, four sums", "Q1", q1.agg[0],
+             [q1_cols[c] for _o, f, c in q1.agg[1] if f == "sum"]),
+            ("Q6 predicate, sum of uint32 l_partkey", "Q6", [],
+             [li["l_partkey"]])):
+        ids, G, _ = operators.group_ids([li[k] for k in keys], lead=seg,
+                                        lead_size=len(parts))
+        prog = program_for(plans[q].predicate, li)
+        cols = [li[c] for c in prog.columns]
+        sums, counts = fsa.fused_scan_agg(prog, cols, ids, vals, G)
+        psums, pcounts = ref.fused_scan_agg(prog, cols, ids, vals, G)
+        check(torch.equal(counts, pcounts) and torch.allclose(
+            sums, psums, rtol=SUM_RTOL, atol=0.0),
+            f"narrow fused_scan_agg {case}: differs")
+        kept, V = int(pcounts.sum()), len(vals)
+        record("fused_scan_agg", f"{case}, R={R}, G={G}, kept={kept}",
+               lambda: fsa.fused_scan_agg(prog, cols, ids, vals, G),
+               float((sums - psums).abs().max()),
+               nbytes(*cols) + kept * (4 + sum(v.element_size()
+                                               for v in vals))
+               + G * (8 * V + 8), R * prog.n_ops + kept * (V + 1))
+    del q1_cols, vals, sums, psums
+
+    # grouped_agg: Q3's residual group-by over uint32, int16 and uint8
+    # keys; then partsupp's uint16 ps_availqty summed by ps_partkey
+    q3 = queries.build_query("Q3")
+    merged = {t: ColumnTable.concat(compile_push_plan(
+        plan).execute_batch_parts([p.data for p in ncat.partitions_of(t)])[0])
+        for t, plan in q3.plans.items()}
+    j = operators.hash_join(merged["orders"], merged["customer"],
+                            "o_custkey", "c_custkey")
+    j = operators.hash_join(merged["lineitem"], j, "l_orderkey", "o_orderkey")
+    ps = ncat.scan_table("partsupp", ["ps_partkey", "ps_availqty"]).cols
+    for case, keys, v in (
+            ("Q3 residual", [j.cols[k] for k in ("l_orderkey", "o_orderdate",
+                                                 "o_shippriority")],
+             j.cols["revenue"]),
+            ("partsupp uint16 ps_availqty by ps_partkey",
+             [ps["ps_partkey"]], ps["ps_availqty"])):
+        ids, G, _ = operators.group_ids(keys)
+        sums, counts = ga.grouped_agg(ids, v, G)
+        psums, pcounts = ref.grouped_agg(ids, v, G)
+        check(torch.equal(counts, pcounts) and torch.allclose(
+            sums, psums, rtol=SUM_RTOL, atol=0.0),
+            f"narrow grouped_agg {case}: differs")
+        record("grouped_agg", f"{case}, R={ids.shape[0]}, G={G}",
+               lambda: ga.grouped_agg(ids, v, G),
+               float((sums - psums).abs().max()),
+               nbytes(ids, v) + G * 16, ids.shape[0])
+    del merged, j, ps
+
+    # bitmap_apply: Q19's Fig-3 apply over the narrow partitions' cached
+    # columns, then Q19's words over all of 1-byte l_shipmode and 2-byte
+    # l_shipdate
+    plan = plans["Q19"]
+    cached = fig3_columns(plan)[1]
+    prog = program_for(plan.predicate, parts[0].cols)
+    pwords = [ref.predicate_bitmap(prog, [p.cols[c] for c in prog.columns])
+              for p in parts]
+    seg_w = [w for w in pwords for _ in cached]
+    seg_c = [p.cols[c] for p in parts for c in cached]
+    seg_p = [i for i in range(len(parts)) for _ in cached]
+    outs, counts = ba.bitmap_apply_segments(seg_w, seg_c, seg_p)
+    pouts, pcounts = ref.bitmap_apply_segments(seg_w, seg_c, seg_p)
+    check(torch.equal(counts, pcounts) and all(
+        torch.equal(bits(a), bits(b)) for a, b in zip(outs, pouts)),
+        "narrow bitmap_apply Q19 Fig-3 apply: differs")
+    kept = pcounts.tolist()
+    record("bitmap_apply", f"Q19 Fig-3 apply, {len(parts)} partitions x "
+           f"{[str(c.dtype)[6:] for c in seg_c[:len(cached)]]}",
+           lambda: ba.bitmap_apply_segments(seg_w, seg_c, seg_p), 0.0,
+           nbytes(*pwords) + sum(kept[p] * c.element_size()
+                                 for p, c in zip(seg_p, seg_c))
+           + nbytes(*seg_c), sum(c.shape[0] for c in seg_c))
+    del outs, pouts
+    for c in ("l_shipmode", "l_shipdate"):
+        col = li[c]
+        masked, count = ba.bitmap_apply(words, col)
+        pmasked, pcount = ref.bitmap_apply(words, col)
+        check(torch.equal(bits(masked), bits(pmasked))
+              and int(count) == int(pcount),
+              f"narrow bitmap_apply {c}: differs")
+        record("bitmap_apply", f"Q19 words on all of {c} "
+               f"{str(col.dtype)[6:]}, R={R}",
+               lambda: ba.bitmap_apply(words, col), 0.0,
+               nbytes(words, col) + int(pcount) * col.element_size(), R)
+    del masked, pmasked
+
+    # hash_partition: uint32 l_orderkey, 1-byte and 2-byte keys
+    P = SHUFFLE_TARGETS
+    for c in ("l_orderkey", "l_shipmode", "l_shipdate"):
+        keys = li[c]
+        pids, hist = hp.hash_partition(keys, P)
+        ppids, phist = ref.hash_partition(keys, P)
+        check(torch.equal(pids, ppids) and torch.equal(hist, phist),
+              f"narrow hash_partition {c}: differs")
+        record("hash_partition", f"{c} {str(keys.dtype)[6:]}, R={R}, P={P}",
+               lambda: hp.hash_partition(keys, P), 0.0,
+               nbytes(keys, pids, hist), 3 * R)
+    del pids, ppids
+
+    # fused_scan_shuffle: Q19's narrow predicate, uint32 l_orderkey keys
+    prog = program_for(plans["Q19"].predicate, li)
+    cols, keys = [li[c] for c in prog.columns], li["l_orderkey"]
+    got = fss.fused_scan_shuffle(prog, cols, keys, P)
+    plain = ref.fused_scan_shuffle(prog, cols, keys, P)
+    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+          "narrow fused_scan_shuffle Q19: differs")
+    record("fused_scan_shuffle", f"Q19 lineitem predicate, key l_orderkey "
+           f"uint32, R={R}, P={P}",
+           lambda: fss.fused_scan_shuffle(prog, cols, keys, P), 0.0,
+           nbytes(*cols, keys, *got), R * (prog.n_ops + 3))
+    return out
+
+
+def narrow_phase(cat, records, timer, sync, results=None,
+                 card: str = "no card"):
+    """TPC-H at its narrowest widths (``NARROW``) on the card: the catalog
+    re-stored by casting each column there, every query eager and adaptive
+    at power 1.0 through ``compile_and_run`` held to the wide catalog's
+    result (``results``: the engine phase's runs, else run here) bitwise,
+    or in rows with sums within ``SUM_RTOL`` (``agree``: narrow columns
+    stage in other tiles, so the kernels' atomics add in another order),
+    with ``Jitter``'s control of the wide query beside it, its keys in their
+    narrow dtypes, and both catalogs' real bytes; a Fig-3 apply and two
+    shuffle plans over the narrow partitions; then each kernel on narrow
+    columns against the wide launch's ms in ``records``
+    (``narrow_kernels``). Returns the launch counts of the driven runs."""
+    from repro_torch.compiler import QUERY_IDS
+    from repro_torch.core import bitmap
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, compile_and_run
+    from repro_torch.core.executor import compile_push_plan
+    from repro_torch.queryproc import expressions as ex
+    from repro_torch.queryproc import operators as ops
+    from repro_torch.queryproc import queries
+
+    drive, launches, _ = launch_counting(sync)
+    t0 = time.perf_counter()
+    ncat = narrow_catalog(cat)
+    sync()
+
+    def table_bytes(c, table=None):
+        return sum(nbytes(*p.data.cols.values()) for t, parts in
+                   c.tables.items() if table in (None, t) for p in parts)
+    print(f"narrow: catalog re-stored at the narrow widths on the card in "
+          f"{time.perf_counter() - t0:.2f} s: {table_bytes(ncat) / 1e9:.2f} "
+          f"GB against {table_bytes(cat) / 1e9:.2f} GB (lineitem "
+          f"{table_bytes(ncat, 'lineitem') / 1e9:.2f} against "
+          f"{table_bytes(cat, 'lineitem') / 1e9:.2f}); {card}")
+    stored = {c: v.dtype for parts in ncat.tables.values()
+              for c, v in parts[0].data.cols.items()}
+    results = results if results is not None else {}
+    bytes_by = {"narrow": 0, "wide": 0}
+    for qid in QUERY_IDS:
+        for mode in ("eager", "adaptive"):
+            cfg = EngineConfig(res=StorageResources(storage_power=1.0),
+                               mode=mode, device=cat.device)
+            t0 = time.perf_counter()
+            run = drive(compile_and_run, qid, ncat, cfg)
+            wall = time.perf_counter() - t0
+            wide = []
+
+            def rerun():
+                wide.append(compile_and_run(qid, cat, cfg))
+                return wide[-1].result
+            first = results.get((qid, mode, 1.0))
+            jit = Jitter(first if first is not None else rerun(), rerun)
+            got = widened(run.result, jit.first)
+            how = agree(jit.first, got)
+            check(how != "", f"narrow {qid} {mode}: differs from the wide "
+                             f"catalog's result")
+            keys = {c: str(v.dtype)[6:] for c, v in run.result.cols.items()
+                    if c in stored}
+            check(all(run.result.cols[c].dtype == stored[c] for c in keys),
+                  f"narrow {qid}: a key lost its narrow dtype")
+            split = "same" if run.sim.decisions() == \
+                wide[-1].sim.decisions() else "differs"
+            bytes_by["narrow"] += run.real_net_bytes
+            bytes_by["wide"] += wide[-1].real_net_bytes
+            print(f"narrow: {qid} mode={mode} wall_s={wall:.4f} "
+                  f"real_net_bytes narrow={run.real_net_bytes} "
+                  f"wide={wide[-1].real_net_bytes} split={split} "
+                  f"agrees={how} (wide control: {jit}) keys={keys}")
+    print(f"narrow: real_net_bytes over the 30 runs narrow="
+          f"{bytes_by['narrow']} wide={bytes_by['wide']}")
+
+    # the §4.2 paths over narrow partitions: Q19's Fig-3 bitmap and apply,
+    # Q3's lineitem shuffle (predicate, uint32 key) and Q12's orders one
+    parts = [p.data for p in ncat.partitions_of("lineitem")]
+    plan = queries.build_query("Q19").plans["lineitem"]
+    uncached, cached = fig3_columns(plan)
+    words, tabs = drive(bitmap.storage_side_bitmap_batched, parts,
+                        plan.predicate, uncached)
+    masked, counts = drive(bitmap.apply_bitmap_to_cache,
+                           [p.select(cached) for p in parts], words)
+    for p, part in enumerate(parts):
+        mask = ex.compile_expr(plan.predicate)(part.cols)
+        want = part.select(uncached + cached).filter(mask)
+        check(identical(tabs[p], want.select(uncached))
+              and identical(masked[p].filter(mask), want.select(cached))
+              and int(counts[p]) == len(want),
+              f"narrow fig3 Q19 partition {p}: differs")
+    for qid, table in (("Q3", "lineitem"), ("Q12", "orders")):
+        q = queries.build_query(qid)
+        splan = shuffle_plan(q, table, SHUFFLE_TARGETS)
+        key = splan.shuffle[0]
+        tabs, aux = drive(compile_push_plan(splan).execute_batch_parts,
+                          [p.data for p in ncat.partitions_of(table)])
+        for p, (t, a) in enumerate(zip(tabs, aux)):
+            check(all(identical(s, w) for s, w in zip(
+                a["shuffle_parts"], ops.shuffle_partition(t, key,
+                                                          SHUFFLE_TARGETS)))
+                  and torch.equal(a["position_vector"],
+                                  ops.hash_partition_ids(t.cols[key],
+                                                         SHUFFLE_TARGETS)),
+                  f"narrow shuffle plan {qid} {table} partition {p}: differs")
+        print(f"narrow: shuffle plan {qid} {table} by {key} "
+              f"({str(tabs[0].cols[key].dtype)[6:]}) rows="
+              f"{sum(len(t) for t in tabs)} held to the plain operators")
+    del words, tabs, masked, aux
+    for n, c in launches.items():
+        check(c > 0, f"narrow: {n} never launched over the narrow catalog")
+
+    t0 = time.perf_counter()
+    recs = narrow_kernels(ncat, records, timer)
+    for r in recs:
+        print(f"narrow kernel: {r['name']} [{r['shape']}] ms={r['ms']:.4f} "
+              f"wide_ms={r['wide_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) share={r['share']:.3f} "
+              f"max_abs_err={r['max_abs_err']:.3g}; {card}")
+    print(f"narrow: kernels held and timed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
 
 
 # ------------------------------------------------------------ tensor phase
@@ -3859,6 +4206,14 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    narrow = narrow_phase(cat, records, cuda_ms, torch.cuda.synchronize,
+                          interp, smi[0])
+    torch.cuda.empty_cache()
+    print(f"narrow phase: {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     tensor = tensor_phase(cat, torch.cuda.synchronize, interp, smi[0])
     del interp
     print(f"tensor phase: {time.perf_counter() - t0:.2f} s, peak "
@@ -3904,7 +4259,9 @@ def main() -> int:
     streamed = stream_phase(cat, torch.cuda.synchronize, smi[0])
     print(f"stream phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    traced = trace_phase(cat, torch.cuda.synchronize, smi[0])
+    # three untraced and three traced streams, not five each: the narrow
+    # phase and its kernels' build took that time
+    traced = trace_phase(cat, torch.cuda.synchronize, smi[0], repeats=3)
     print(f"trace phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     tiered = tier_phase(cat, torch.cuda.synchronize, smi[0])
@@ -3935,12 +4292,13 @@ def main() -> int:
                             torch.cuda.synchronize, smi[0], args.seed)
     print(f"launch phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
-    launches = {n: engine[n] + tensor[n] + costed[n] + comp[n] + sec42[n]
-                + cached[n] + faulted[n] + streamed[n] + traced[n]
-                + tiered[n] + piped[n] + trained[n] + launched[n]
+    launches = {n: engine[n] + narrow[n] + tensor[n] + costed[n] + comp[n]
+                + sec42[n] + cached[n] + faulted[n] + streamed[n]
+                + traced[n] + tiered[n] + piped[n] + trained[n] + launched[n]
                 for n in records}
     print("kernels: " + "; ".join(
-        f"{n} check=ok launches={launches[n]} (engine {engine[n]}, tensor "
+        f"{n} check=ok launches={launches[n]} (engine {engine[n]}, narrow "
+        f"{narrow[n]}, tensor "
         f"{tensor[n]}, costed {costed[n]}, compiler {comp[n]}, section 4.2 "
         f"{sec42[n]}, cache {cached[n]}, faults {faulted[n]}, stream "
         f"{streamed[n]}, trace {traced[n]}, tier {tiered[n]}, pipeline "

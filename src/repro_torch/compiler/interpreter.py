@@ -15,8 +15,6 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Callable, Dict, Tuple
 
-import torch
-
 from repro_torch.compiler import ir
 from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc import operators as ops
@@ -84,7 +82,7 @@ def _eval(node: ir.Node, merged: Dict[str, ColumnTable],
                              node.rkey)
     if isinstance(node, ir.SemiJoin):
         left, right = run(node.left), run(node.right)
-        mask = torch.isin(left.cols[node.lkey], right.cols[node.rkey])
+        mask = ops.isin(left.cols[node.lkey], right.cols[node.rkey])
         return left.filter(~mask if node.anti else mask)
     if isinstance(node, ir.TopK):
         return ops.top_k(run(node.child), node.col, node.k, node.ascending)

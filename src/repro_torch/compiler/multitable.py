@@ -49,6 +49,7 @@ import torch
 from repro_torch.compiler import ir, pushability
 from repro_torch.core.cost import StorageResources
 from repro_torch.queryproc import expressions as ex
+from repro_torch.queryproc.table import from_key, sort_key
 
 #: compute-node operator bandwidth the exchange scoring assumes when the
 #: caller does not pass the engine's (matches EngineConfig.compute_bw)
@@ -150,9 +151,12 @@ def _chain_domains(node: ir.Node, catalog,
                 mask &= ex.compile_expr(p)(data.cols)
             for c in data.columns:
                 col = data.cols[c]
-                vals = torch.unique(col[mask])
+                key = col if col.is_floating_point() else sort_key(col)
+                vals = torch.unique(key[mask])
                 if 0 < vals.numel() <= DOMAIN_MAX_VALUES \
-                        and vals.numel() < torch.unique(col).numel():
+                        and vals.numel() < torch.unique(key).numel():
+                    if not col.is_floating_point():
+                        vals = from_key(vals, col.dtype)
                     out[c] = frozenset(vals.tolist())
     memo[id(node)] = out
     return out

@@ -172,7 +172,8 @@ def q8_ir() -> ir.Node:
     g = ir.Aggregate(j, ("o_year",), (("nat", "sum", "nat_volume"),
                                       ("total", "sum", "volume")))
     g = ir.Map(g, (("mkt_share", ("nat", "total"),
-                    lambda n, t: n / torch.clamp(t, min=1e-9)),))
+                    lambda n, t: n / torch.clamp(t.to(torch.float64),
+                                                 min=1e-9)),))
     return ir.Project(g, ("o_year", "mkt_share"))
 
 

@@ -89,7 +89,7 @@ from repro_torch.kernels.ref import words_from_uint32
 from repro_torch.obs import trace as obs_trace
 from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc import operators as qops
-from repro_torch.queryproc.table import ColumnTable
+from repro_torch.queryproc.table import ColumnTable, as_float64, gather
 from repro_torch.storage.catalog import Partition
 
 
@@ -358,7 +358,7 @@ class CompiledPushPlan:
                 # survivors before each partition's end -> output bounds
                 ends = torch.as_tensor(np.cumsum(lens), device=idx.device)
                 bounds = [0] + torch.searchsorted(idx, ends).tolist()
-                cols = {c: concat(c)[idx] for c in present}
+                cols = {c: gather(concat(c), idx) for c in present}
                 if pids is not None:
                     pids = pids[idx]
             else:
@@ -400,7 +400,7 @@ class CompiledPushPlan:
         dev = pids.device
         seg = _segments(bounds, dev)
         code, order = torch.sort(seg * n_t + pids, stable=True)
-        sorted_cols = {c: v[order] for c, v in out.cols.items()}
+        sorted_cols = {c: gather(v, order) for c, v in out.cols.items()}
         cuts = torch.searchsorted(
             code, torch.arange(n_parts * n_t + 1, device=dev)).tolist()
         for p, a in enumerate(aux):
@@ -413,9 +413,10 @@ class CompiledPushPlan:
     def _top_k_rows(self, v: torch.Tensor, part_of: torch.Tensor,
                     n_parts: int) -> torch.Tensor:
         """Indices of each partition's k best rows by ``v``, partition by
-        partition, best first, ties in row order."""
+        partition, best first (``qops.rank_key``: NaN last), ties in row
+        order."""
         _col, k, ascending = self.plan.top_k
-        order = torch.sort(v, descending=not ascending, stable=True).indices
+        order = torch.sort(qops.rank_key(v, ascending), stable=True).indices
         order = order[torch.sort(part_of[order], stable=True).indices]
         seg = part_of[order]
         starts = torch.searchsorted(
@@ -437,18 +438,18 @@ class CompiledPushPlan:
         seg = _segments(np.cumsum([0] + lens), dev)
         if keep is not None:
             idx = torch.nonzero(keep).flatten()
-            cols = {c: v[idx] for c, v in cols.items()}
+            cols = {c: gather(v, idx) for c, v in cols.items()}
             seg = seg[idx]
         for name, incols, fn in plan.derive:
             cols[name] = fn(*[cols[c] for c in incols])
         ids, G, decode = qops.group_ids([cols[k] for k in keys], lead=seg,
                                         lead_size=n_parts)
         pcols = [cols[c] for c in prog.columns] if prog is not None else []
-        # each summed column once; all of them (Q1's four) in one launch
+        # each summed column once, read at its stored width; all of them
+        # (Q1's four) in one launch
         summed = list(dict.fromkeys(col for fn, col in self.agg_spec.values()
                                     if fn in ("sum", "mean")))
-        vals = [v if v.dtype in fsa.VALUE_DTYPES else v.to(torch.float64)
-                for v in (cols[c] for c in summed)]
+        vals = [cols[c] for c in summed]
         rows: List[torch.Tensor] = []
         for i in range(0, max(len(vals), 1), fsa.MAX_VALUES):
             s, counts = fsa.fused_scan_agg(prog, pcols, ids,
@@ -460,13 +461,9 @@ class CompiledPushPlan:
             if fn in ("sum", "mean"):
                 red[name] = by_col[col]
             elif fn in ("min", "max"):
-                v = cols[col]
-                red[name] = torch.empty(G, dtype=v.dtype, device=dev) \
-                    .scatter_reduce_(0, ids.to(torch.int64), v,
-                                     "amin" if fn == "min" else "amax",
-                                     include_self=False)
+                red[name] = qops.reduce_min_max(cols[col], fn, ids, G)
         if not keys:
-            return (self._keyless(red, counts),
+            return (self._keyless(red, counts, cols),
                     torch.arange(n_parts, device=dev))
         nz = torch.nonzero(counts).flatten()
         part_of, key_vals = decode(nz)
@@ -475,25 +472,36 @@ class CompiledPushPlan:
         for name, (fn, _col) in self.agg_spec.items():
             out[name] = (cnt if fn == "count"
                          else red[name][nz] / torch.clamp(cnt, min=1)
-                         if fn == "mean" else red[name][nz])
+                         if fn == "mean" else gather(red[name], nz))
         return ColumnTable(out), part_of
 
-    def _keyless(self, red: Dict[str, torch.Tensor], counts: torch.Tensor
-                 ) -> ColumnTable:
-        """One row per partition; a partition with no kept rows gets the
-        reference's float64 ``0.`` placeholder in every column (which makes
-        every column float64, as numpy's concatenation does)."""
+    def _keyless(self, red: Dict[str, torch.Tensor], counts: torch.Tensor,
+                 cols: Dict[str, torch.Tensor]) -> ColumnTable:
+        """One row per partition, in the dtypes of ``np.sum`` and
+        ``np.mean``: a float column's sum and mean in its own dtype, a sum
+        of a bool or integer column as int64 (uint64 for an unsigned one;
+        the kernel's f64 sum, so exact while a partition's sum stays below
+        2**53).
+        A partition with no kept rows gets the reference's float64 ``0.``
+        placeholder in every column, which makes every column float64, as
+        numpy's concatenation of the partitions' results does."""
         empty = counts == 0
         any_empty = bool(empty.any())
         out = {}
-        for name, (fn, _col) in self.agg_spec.items():
+        for name, (fn, col) in self.agg_spec.items():
             v = (counts if fn == "count"
                  else red[name] / torch.clamp(counts, min=1) if fn == "mean"
                  else red[name])
+            if fn in ("sum", "mean") and cols[col].is_floating_point():
+                v = v.to(cols[col].dtype)  # np.sum and np.mean keep it
+            elif fn == "sum":
+                v = v.to(torch.int64)
+                if cols[col].dtype in qops.UNSIGNED:
+                    v = v.view(torch.uint64)
             if any_empty:
                 v = torch.where(empty, torch.zeros((), dtype=torch.float64,
                                                    device=v.device),
-                                v.to(torch.float64))
+                                as_float64(v))
             out[name] = v
         return ColumnTable(out)
 

@@ -122,9 +122,9 @@ def _read_frame(sock: socket.socket) -> Tuple[Dict, memoryview, int]:
 
 # ------------------------------------------------------ value/table codec
 _DTYPES = {str(d).split(".")[1]: d for d in (
-    torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32,
-    torch.int64, torch.float16, torch.bfloat16, torch.float32,
-    torch.float64)}
+    torch.bool, torch.uint8, torch.int8, torch.int16, torch.uint16,
+    torch.int32, torch.uint32, torch.int64, torch.uint64, torch.float16,
+    torch.bfloat16, torch.float32, torch.float64)}
 
 
 class _Cursor:

@@ -41,8 +41,9 @@ SIGNATURES = {
         "grouped_agg_l2_launch": [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P],
         "grouped_agg_range_launch": [_P, _P, _I, _LL, _I, _I, _I, _I, _LL,
                                      _I, _I, _I, _P, _P, _P, _P, _P, _P]},
-    "bitmap_apply": {  # segment table, n_seg, n_chunks, counts, sms, stream
-        "bitmap_apply_launch": [_P, _I, _LL, _P, _I, _P],
+    "bitmap_apply": {  # segment table, n_seg, n_chunks, counts, sms,
+        #                narrow, stream
+        "bitmap_apply_launch": [_P, _I, _LL, _P, _I, _I, _P],
         "bitmap_apply_chunk_rows": []},
     "shuffle": {
         "hash_partition_launch": [_P, _I, _LL, _I, _P, _P, _I, _P],

@@ -5,8 +5,9 @@ Replaces the TPU kernel ``repro/kernels/bitmap_apply.py::bitmap_apply``
 (Fig 3), where words shipped by the storage node filter a column the
 compute layer holds. Late materialisation, as on the TPU: the column keeps
 its shape with dropped rows zeroed, and the selected rows are counted. The
-CUDA kernel (``csrc/bitmap_apply.cu``) moves each value as raw bits, so it
-takes int32, int64, f32 and f64 columns.
+CUDA kernel (``csrc/bitmap_apply.cu``) moves each value as raw bits at its
+stored width, so it takes a column of any ``DTYPE_CODES`` dtype (1, 2, 4
+or 8 bytes a row).
 
 ``bitmap_apply_segments`` applies many (words, column) segments in one
 launch, as the Fig-3 apply does over every partition and cached column;
@@ -17,20 +18,22 @@ read, and every row written, at 3.35 TB/s. Design: the segments' rows are
 cut into chunks of a fixed number of rows, which never cross a segment; a
 grid of resident blocks strides over the chunks of all segments, stages
 each chunk's words in shared memory, counts them with one atomic a chunk,
-and moves 16 bytes (4 or 2 rows) a thread, skipping the load of a vector
-with no kept row.
+and moves 16 bytes (16, 8, 4 or 2 rows) a thread, skipping the load of a
+vector with no kept row.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build, _launch, ref
+from repro_torch.kernels.program import DTYPE_CODES
 
-COLUMN_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
-_RAW = {4: torch.int32, 8: torch.int64}  # one output allocation a size
+COLUMN_DTYPES = tuple(DTYPE_CODES)  # moved at their stored width
+# one output allocation a size
+_RAW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _check(words: Sequence[torch.Tensor], cols: Sequence[torch.Tensor],
@@ -56,10 +59,11 @@ def _outputs(cols: Sequence[torch.Tensor], dev: torch.device
     size, each starting at its column's offset within 16 bytes (so the
     kernel's 16-byte accesses are aligned on both sides)."""
     outs: List[torch.Tensor] = [None] * len(cols)
-    for size, raw in _RAW.items():
-        idx = [i for i, c in enumerate(cols) if c.element_size() == size]
-        if not idx:
-            continue
+    by_size: Dict[int, List[int]] = {}
+    for i, c in enumerate(cols):
+        by_size.setdefault(c.element_size(), []).append(i)
+    for size, idx in by_size.items():
+        raw = _RAW[size]
         per = 16 // size
         pieces, end = [], 0  # (gap, rows) in elements
         for i in idx:
@@ -94,6 +98,7 @@ def bitmap_apply_segments(words: Sequence[torch.Tensor],
     outs = _outputs(cols, dev)
     lib = _build.library("bitmap_apply")
     rows = np.asarray([c.shape[0] for c in cols], np.int64)
+    sizes = np.asarray([c.element_size() for c in cols], np.int64)
     chunk = lib.bitmap_apply_chunk_rows()
     first = np.concatenate([[0], np.cumsum(-(-rows // chunk))])
     slot = np.full(len(cols), -1, np.int64)
@@ -102,15 +107,16 @@ def bitmap_apply_segments(words: Sequence[torch.Tensor],
     segs = np.stack([
         np.asarray([w.data_ptr() for w in words], np.int64),
         np.asarray([c.data_ptr() for c in cols], np.int64),
-        np.asarray([o.data_ptr() for o in outs], np.int64), rows,
-        np.asarray([c.element_size() for c in cols], np.int64), slot], 1)
+        np.asarray([o.data_ptr() for o in outs], np.int64), rows, sizes,
+        slot], 1)
     # one copy, from pinned memory so that it does not stall the host
     table = torch.from_numpy(np.concatenate([first, segs.reshape(-1)])
                              ).pin_memory().to(dev, non_blocking=True)
     if first[-1]:
         _launch.raise_on(lib.bitmap_apply_launch(
             table.data_ptr(), len(cols), int(first[-1]), counts.data_ptr(),
-            _launch.sm_count(dev), _launch.stream_of(dev)), "bitmap_apply")
+            _launch.sm_count(dev), int((sizes < 4).any()),
+            _launch.stream_of(dev)), "bitmap_apply")
         bitmap_apply.launches += 1
     return outs, counts
 

@@ -30,16 +30,17 @@
 // partition's first segment has a slot, so each partition is counted once.
 // The next chunk's words are loaded while this one is stored, so their
 // round trip to device memory is hidden. Each thread then moves 16 bytes
-// at a time (4 rows of 4 bytes or 2 of 8): a funnel shift of two staged
-// words gives the vector's bits, a vector none of whose rows is kept is
-// not loaded and stores zeros, and the others store their kept values and
-// zeros. The output of a segment starts at the same offset within 16
-// bytes as its column (the wrapper places it so), so both sides of a
-// vector are aligned; the rows before the column's first 16-byte boundary
-// and after its last full vector go one at a time. Values move as raw 4-
-// or 8-byte words, so one kernel serves int32, int64, f32 and f64 and a
-// kept value keeps every bit (-0.0, NaN); a dropped row gets all-zero
-// bits, which is 0 or +0.0.
+// at a time (16 rows of 1 byte, 8 of 2, 4 of 4 or 2 of 8): a funnel shift
+// of two staged words gives the vector's bits, a vector none of whose rows
+// is kept is not loaded and stores zeros, and the others store their kept
+// values and zeros. The output of a segment starts at the same offset
+// within 16 bytes as its column (the wrapper places it so), so both sides
+// of a vector are aligned; the rows before the column's first 16-byte
+// boundary and after its last full vector go one at a time. Values move as
+// raw 1-, 2-, 4- or 8-byte words, so one kernel serves every column dtype
+// at its stored width (bool, the integers, f16, f32, f64), and a kept value
+// keeps every bit (-0.0, NaN); a dropped row gets all-zero bits, which is
+// 0, False or +0.0.
 //
 // Measured (profile_kernels.py bitmap_apply; NVIDIA H100 80GB HBM3,
 // 700.00 W): chunks of 4,096 or 8,192 rows, 4 to 8 blocks an SM, 2 to 8
@@ -96,18 +97,27 @@ __device__ __forceinline__ unsigned mask_past(unsigned w, long long wi,
   return left >= 32 ? w : left <= 0 ? 0u : w & ((1u << left) - 1u);
 }
 
-__device__ __forceinline__ uint4 keep_lanes(uint4 y, unsigned m, int vec) {
-  if (vec == 4) {
-    y.x = m & 1u ? y.x : 0u;
-    y.y = m & 2u ? y.y : 0u;
-    y.z = m & 4u ? y.z : 0u;
-    y.w = m & 8u ? y.w : 0u;
-  } else {
-    y.x = m & 1u ? y.x : 0u;
-    y.y = m & 1u ? y.y : 0u;
-    y.z = m & 2u ? y.z : 0u;
-    y.w = m & 2u ? y.w : 0u;
+// The bits of 32-bit word j of a 16-byte vector of VEC rows whose rows the
+// mask m (bit k: row k) keeps: all of a kept row's bytes, none of a
+// dropped one's.
+template <int VEC>
+__device__ __forceinline__ unsigned lane_mask(unsigned m, int j) {
+  if (VEC == 2) return (m >> (j >> 1)) & 1u ? ~0u : 0u;
+  if (VEC == 4) return (m >> j) & 1u ? ~0u : 0u;
+  if (VEC == 8) {
+    const unsigned b = m >> (2 * j);
+    return (b & 1u ? 0xFFFFu : 0u) | (b & 2u ? 0xFFFF0000u : 0u);
   }
+  const unsigned b = (m >> (4 * j)) & 15u;  // one bit a byte, spread
+  return ((b | b << 7 | b << 14 | b << 21) & 0x01010101u) * 0xFFu;
+}
+
+template <int VEC>
+__device__ __forceinline__ uint4 keep_lanes(uint4 y, unsigned m) {
+  y.x &= lane_mask<VEC>(m, 0);
+  y.y &= lane_mask<VEC>(m, 1);
+  y.z &= lane_mask<VEC>(m, 2);
+  y.w &= lane_mask<VEC>(m, 3);
   return y;
 }
 
@@ -145,7 +155,7 @@ __device__ __forceinline__ void apply_vectors(const unsigned* s_words,
     const long long iv = i + u * THREADS;
     if (iv < i1)
       *reinterpret_cast<uint4*>(out + h + VEC * iv) =
-          keep_lanes(x[u], m[u], VEC);
+          keep_lanes<VEC>(x[u], m[u]);
   }
 }
 
@@ -180,6 +190,10 @@ __device__ __forceinline__ void apply_chunk(const unsigned* s_words,
 
 // first_chunk: (n_seg + 1,) the first chunk of each segment and the total;
 // segs: (n_seg, SEG_FIELDS) as bitmap_apply_launch describes.
+// NARROW: the table holds 1- or 2-byte columns too (their vectors are
+// another instantiation, so a launch of 4- and 8-byte columns alone keeps
+// the registers it had without them).
+template <bool NARROW>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 bitmap_apply_kernel(const long long* __restrict__ first_chunk,
                     const long long* __restrict__ segs, int n_seg,
@@ -220,16 +234,28 @@ bitmap_apply_kernel(const long long* __restrict__ first_chunk,
     const long long n = R - row0 < CHUNK_ROWS ? R - row0 : CHUNK_ROWS;
     const bool last = row0 + CHUNK_ROWS >= R;
     const unsigned* words = reinterpret_cast<const unsigned*>(f[0]);
-    if (f[4] == 4)
+    if (f[4] == 4) {
       apply_chunk<unsigned>(s_words, words,
                             reinterpret_cast<const unsigned*>(f[1]),
                             reinterpret_cast<unsigned*>(f[2]), R, row0, n,
                             lc == 0, last);
-    else
+    } else if (f[4] == 8) {
       apply_chunk<unsigned long long>(
           s_words, words, reinterpret_cast<const unsigned long long*>(f[1]),
           reinterpret_cast<unsigned long long*>(f[2]), R, row0, n, lc == 0,
           last);
+    } else if constexpr (NARROW) {
+      if (f[4] == 2)
+        apply_chunk<unsigned short>(
+            s_words, words, reinterpret_cast<const unsigned short*>(f[1]),
+            reinterpret_cast<unsigned short*>(f[2]), R, row0, n, lc == 0,
+            last);
+      else
+        apply_chunk<unsigned char>(
+            s_words, words, reinterpret_cast<const unsigned char*>(f[1]),
+            reinterpret_cast<unsigned char*>(f[2]), R, row0, n, lc == 0,
+            last);
+    }
     __syncthreads();  // s_words and s_cnt are the next chunk's
     s = s_next;
   }
@@ -237,19 +263,25 @@ bitmap_apply_kernel(const long long* __restrict__ first_chunk,
 
 // table: int64 on the card, (n_seg + 1) first chunks (ceil(R / CHUNK_ROWS)
 // chunks a segment, prefix-summed), then n_seg rows of (words, column,
-// output, R, element size 4 or 8, count slot or -1). Each output must start
-// at the same offset within 16 bytes as its column. counts: u64 slots,
-// zeroed by the caller.
+// output, R, element size 1, 2, 4 or 8, count slot or -1). Each output
+// must start at the same offset within 16 bytes as its column. counts: u64
+// slots, zeroed by the caller. narrow: some segment's element size is 1 or
+// 2 (else each is 4 or 8).
 extern "C" int bitmap_apply_launch(const void* table, int n_seg,
                                    long long n_chunks, void* counts,
-                                   int sms, void* stream) {
+                                   int sms, int narrow, void* stream) {
   if (n_seg < 0 || n_chunks < 0 || sms < 1) return (int)cudaErrorInvalidValue;
   if (n_chunks > 0) {
     const long long cap = (long long)sms * BLOCKS_PER_SM;
     const unsigned blocks = (unsigned)(n_chunks < cap ? n_chunks : cap);
     const long long* t = static_cast<const long long*>(table);
-    bitmap_apply_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        t, t + n_seg + 1, n_seg, static_cast<unsigned long long*>(counts));
+    unsigned long long* c = static_cast<unsigned long long*>(counts);
+    if (narrow)
+      bitmap_apply_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+          t, t + n_seg + 1, n_seg, c);
+    else
+      bitmap_apply_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+          t, t + n_seg + 1, n_seg, c);
   }
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@
 // (fused_scan_agg -> pl.pallas_call), which contracted a one-hot group
 // matrix on the MXU, one value column per call. Bound: bytes — the
 // predicate columns read once, kept x (4 + the value columns' bytes a row)
-// for the ids and values of the kept rows, and G x (8V + 8) of sums and
-// counts written, against 3.35 TB/s.
+// for the ids and values of the kept rows (each value at its stored width,
+// 1 to 8 bytes), and G x (8V + 8) of sums and counts written, against
+// 3.35 TB/s.
 //
 // What held the first design back: the engine launched it once per summed
 // column, so Q1's four sums evaluated the predicate and read the ids four
@@ -55,11 +56,12 @@
 #define MAX_VALUES 4
 #define FULL 0xffffffffu
 
-// V value columns; bit j of f64 says column j is f64 (else f32).
+// V value columns, column j of dtype vdt[j] (program.cuh's DT_*), read at
+// its stored width and summed in f64.
 struct AggArgs {
   const int* ids;
   const void* vals[MAX_VALUES];
-  unsigned f64;
+  int vdt[MAX_VALUES];
   long long R;
   int G, smem_partials;
   size_t partials;  // byte offset of the shared partials
@@ -104,12 +106,6 @@ __device__ __forceinline__ double reduce_values(double (&x)[N], int lane) {
   return s;
 }
 
-__device__ __forceinline__ double load_value(const AggArgs& A, int j,
-                                             long long r) {
-  return (A.f64 >> j) & 1u ? static_cast<const double*>(A.vals[j])[r]
-                           : (double)static_cast<const float*>(A.vals[j])[r];
-}
-
 // One consumer warp's sub-tile: lane l's rows rb + 32 * k (k < TILE_K),
 // their group ids (~0u for a dropped row) and values.
 template <int V>
@@ -118,19 +114,42 @@ struct Rows {
   double v[TILE_K][V > 0 ? V : 1];
 };
 
+// Value column j's kept rows, read as C.
+template <typename C, int V>
+__device__ __forceinline__ void load_values(const void* p, int j,
+                                            long long rb, unsigned keep,
+                                            Rows<V>& x) {
+#pragma unroll
+  for (int k = 0; k < TILE_K; ++k)
+    x.v[k][j] = (keep >> k) & 1u
+                    ? (double)static_cast<const C*>(p)[rb + 32 * k] : 0.0;
+}
+
 // Issue the loads of the ids and values of the rows `keep` keeps. The
 // values do not wait for the ids: a kept row's value is loaded whatever its
-// id, so both come in one round trip to device memory.
+// id, so both come in one round trip to device memory. A value column's
+// dtype is decided once, outside the row loop, so its TILE_K loads are in
+// flight together: f64 and f32 by typed loads, the other dtypes (bool, the
+// integers, f16) each at its stored width through load_f64.
 template <int V>
 __device__ __forceinline__ void load_rows(const AggArgs& A, long long rb,
                                           unsigned keep, Rows<V>& x) {
 #pragma unroll
-  for (int k = 0; k < TILE_K; ++k) {
-    const long long r = rb + 32 * k;
-    const bool kept = (keep >> k) & 1u;
-    x.g[k] = kept ? (unsigned)A.ids[r] : 0xffffffffu;
+  for (int k = 0; k < TILE_K; ++k)
+    x.g[k] = (keep >> k) & 1u ? (unsigned)A.ids[rb + 32 * k] : 0xffffffffu;
 #pragma unroll
-    for (int j = 0; j < V; ++j) x.v[k][j] = kept ? load_value(A, j, r) : 0.0;
+  for (int j = 0; j < V; ++j) {
+    const int dt = A.vdt[j];
+    if (dt == DT_F64) {
+      load_values<double>(A.vals[j], j, rb, keep, x);
+    } else if (dt == DT_F32) {
+      load_values<float>(A.vals[j], j, rb, keep, x);
+    } else {
+#pragma unroll
+      for (int k = 0; k < TILE_K; ++k)
+        x.v[k][j] = (keep >> k) & 1u ? load_f64(dt, A.vals[j], rb + 32 * k)
+                                     : 0.0;
+    }
   }
 }
 
@@ -302,15 +321,15 @@ static int launch_w(int V, const StagedProgram& S, const StageLayout& L,
   }
 }
 
-// values: n_values (at most MAX_VALUES) column pointers, with value_f64[j]
-// set for an f64 column (else f32). sums (n_values, G) f64 and counts (G,)
+// values: n_values (at most MAX_VALUES) column pointers, value_dt[j] the
+// dtype code of column j (any DT_*). sums (n_values, G) f64 and counts (G,)
 // u64 must be zeroed by the caller. n_cols = 0 (no program) keeps every
 // row.
 extern "C" int fused_scan_agg_launch(
     const int* ops, int n_ops, const double* fconst, const long long* iconst,
     int n_consts, const long long* col_ptrs, const int* dtypes, int n_cols,
     const long long* pool, int n_pool,
-    const void* ids, const long long* value_ptrs, const int* value_f64,
+    const void* ids, const long long* value_ptrs, const int* value_dt,
     int n_values, long long R, int G, void* sums, void* counts, int sms,
     void* stream) {
   PredProgram P;
@@ -326,7 +345,7 @@ extern "C" int fused_scan_agg_launch(
   A.ids = static_cast<const int*>(ids);
   for (int j = 0; j < n_values; ++j) {
     A.vals[j] = reinterpret_cast<const void*>(value_ptrs[j]);
-    A.f64 |= value_f64[j] ? 1u << j : 0u;
+    A.vdt[j] = value_dt[j];
   }
   A.R = R;
   A.G = G;

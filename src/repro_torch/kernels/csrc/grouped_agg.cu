@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel repro/kernels/grouped_agg.py (grouped_agg ->
 // pl.pallas_call), a one-hot group matrix contracted on the MXU. Bound:
-// bytes — ids (4 B) and values (4 or 8 B) read once, G sums and counts
+// bytes — ids (4 B) and values (1 to 8 B) read once, G sums and counts
 // (16 B) written once, against 3.35 TB/s.
 //
 // What held the first design back (the fused_scan_agg body with an empty
@@ -57,10 +57,42 @@
 #define SMEM_MAX (227 * 1024)  // a block's opt-in shared memory on sm_90
 #define SCATTER_TILE 8192       // rows range_scatter puts in bucket order at once
 
+// Row r of a value column of dtype vdt (program.cuh's DT_*) as f64, read
+// at its stored width: f32 or f64 in a kernel for those (as before the
+// narrow widths, so its registers stay as they were), any dtype through
+// load_f64 in a NARROW one.
+template <bool NARROW>
 __device__ __forceinline__ double value_at(const void* v, int vdt,
                                            long long r) {
-  return vdt == DT_F64 ? static_cast<const double*>(v)[r]
-                       : (double)static_cast<const float*>(v)[r];
+  if constexpr (NARROW)
+    return load_f64(vdt, v, r);
+  else
+    return vdt == DT_F64 ? static_cast<const double*>(v)[r]
+                         : (double)static_cast<const float*>(v)[r];
+}
+
+// The values of rows r0 + stride * k whose bit k of `want` is set, as f64
+// (0 for the others), read at the column's stored width: the dtype vdt is
+// decided once, so the K loads are in flight together (range_scatter).
+template <int K>
+__device__ __forceinline__ void values_of(const void* p, int vdt,
+                                          long long r0, long long stride,
+                                          unsigned want, double (&v)[K]) {
+  if (vdt == DT_F64) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = (want >> k) & 1u ? static_cast<const double*>(p)[r0 + stride * k]
+                              : 0.0;
+  } else if (vdt == DT_F32) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = (want >> k) & 1u
+                 ? (double)static_cast<const float*>(p)[r0 + stride * k] : 0.0;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = (want >> k) & 1u ? load_f64(vdt, p, r0 + stride * k) : 0.0;
+  }
 }
 
 // Zero n f64 sums and n u32 counts laid out back to back in shared memory.
@@ -79,7 +111,7 @@ __device__ __forceinline__ void zero_partials(double* s_sum, unsigned* s_cnt,
 // flight; the blocks of a chunk share the values in L2). L2: the l2
 // regime, in which the partials are the zero-filled outputs themselves,
 // kept in L2 (one range, n_chunks = the grid).
-template <int K, bool L2>
+template <int K, bool L2, bool NARROW>
 __global__ void __launch_bounds__(1024)
 agg_smem_kernel(const int* __restrict__ ids, const void* __restrict__ values,
                 int vdt, long long R, int G, int per, int n_chunks,
@@ -116,14 +148,15 @@ agg_smem_kernel(const int* __restrict__ ids, const void* __restrict__ values,
     for (int k = 0; k < K; ++k) {
       const long long r = r0 + 32 * k;
       g[k] = r < R ? (unsigned)ids[r] - (unsigned)g0 : 0xffffffffu;
-      v[k] = !combine && has_values && r < R ? value_at(values, vdt, r)
-                                             : 0.0;
+      v[k] = !combine && has_values && r < R
+                 ? value_at<NARROW>(values, vdt, r) : 0.0;
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (g[k] < (unsigned)gn) {
         pend |= 1u << k;
-        if (combine && has_values) v[k] = value_at(values, vdt, r0 + 32 * k);
+        if (combine && has_values)
+          v[k] = value_at<NARROW>(values, vdt, r0 + 32 * k);
       }
     }
     for (int round = 0;; ++round) {
@@ -313,12 +346,11 @@ range_scatter_kernel(const int* __restrict__ ids,
       const long long r = t0 + (long long)k * blockDim.x + threadIdx.x;
       g[k] = r < hi ? ids[r] : -1;
     }
+    unsigned want = 0u;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const long long r = t0 + (long long)k * blockDim.x + threadIdx.x;
-      v[k] = has_values && (unsigned)g[k] < (unsigned)G
-                 ? value_at(values, vdt, r) : 0.0;
-    }
+    for (int k = 0; k < K; ++k)
+      want |= has_values && (unsigned)g[k] < (unsigned)G ? 1u << k : 0u;
+    values_of<K>(values, vdt, t0 + threadIdx.x, blockDim.x, want, v);
 #pragma unroll
     for (int k = 0; k < K; ++k)
       if ((unsigned)g[k] < (unsigned)G)
@@ -411,19 +443,27 @@ static int opt_in(K kernel) {
       SMEM_MAX - (int)a.sharedSizeBytes);
 }
 
-// vdt: -1 (counts only), DT_F32 or DT_F64. n_ranges * n_chunks blocks of
-// `threads`, each with per * 12 bytes of partials (<= SMEM_MAX; n_ranges *
-// per >= G). sums (G,) f64 and counts (G,) u64 are one buffer (counts =
-// sums + G). With n_chunks == 1 every output is written; otherwise one
-// memset zeroes both first.
+// Whether a value column needs the NARROW kernels: its dtype is neither
+// f32 nor f64 (-1: no values).
+static bool is_narrow(int vdt) {
+  return vdt >= 0 && vdt != DT_F32 && vdt != DT_F64;
+}
+
+// vdt: -1 (counts only) or the value column's dtype (any DT_*).
+// n_ranges * n_chunks blocks of `threads`, each with per * 12 bytes of
+// partials (<= SMEM_MAX; n_ranges * per >= G). sums (G,) f64 and counts
+// (G,) u64 are one buffer (counts = sums + G). With n_chunks == 1 every
+// output is written; otherwise one memset zeroes both first.
 extern "C" int grouped_agg_smem_launch(const void* ids, const void* values,
                                        int vdt, long long R, int G, int per,
                                        int n_ranges, int n_chunks,
                                        int combine, int threads, void* sums,
                                        void* counts, void* stream) {
   static const int opted = [] {
-    const int e = opt_in(agg_smem_kernel<8, false>);
-    return e ? e : opt_in(agg_smem_kernel<16, false>);
+    int e = opt_in(agg_smem_kernel<8, false, false>);
+    if (!e) e = opt_in(agg_smem_kernel<16, false, false>);
+    if (!e) e = opt_in(agg_smem_kernel<8, false, true>);
+    return e ? e : opt_in(agg_smem_kernel<16, false, true>);
   }();
   if (opted) return opted;
   if (R <= 0 || G <= 0) return 0;
@@ -434,8 +474,11 @@ extern "C" int grouped_agg_smem_launch(const void* ids, const void* values,
     const int err = (int)cudaMemsetAsync(sums, 0, (size_t)G * 16, s);
     if (err) return err;
   }
-  auto kernel = combine ? agg_smem_kernel<8, false>
-                        : agg_smem_kernel<16, false>;
+  const bool narrow = is_narrow(vdt);
+  auto kernel = combine ? (narrow ? agg_smem_kernel<8, false, true>
+                                  : agg_smem_kernel<8, false, false>)
+                        : (narrow ? agg_smem_kernel<16, false, true>
+                                  : agg_smem_kernel<16, false, false>);
   kernel<<<n_ranges * n_chunks, threads, (size_t)per * 12, s>>>(
       static_cast<const int*>(ids), values, vdt, R, G, per, n_chunks, combine,
       su, static_cast<unsigned long long*>(counts));
@@ -454,7 +497,9 @@ extern "C" int grouped_agg_l2_launch(const void* ids, const void* values,
   cudaStream_t s = (cudaStream_t)stream;
   const int err = (int)cudaMemsetAsync(sums, 0, (size_t)G * 16, s);
   if (err) return err;
-  agg_smem_kernel<8, true><<<blocks, threads, 0, s>>>(
+  auto kernel = is_narrow(vdt) ? agg_smem_kernel<8, true, true>
+                               : agg_smem_kernel<8, true, false>;
+  kernel<<<blocks, threads, 0, s>>>(
       static_cast<const int*>(ids), values, vdt, R, G, G, blocks, 0, su,
       static_cast<unsigned long long*>(counts));
   return (int)cudaGetLastError();

@@ -30,8 +30,10 @@
 // instruction throughput is what is left, so the consumers run
 // program.cuh::eval_staged: a stack of row masks (an AND or OR costs a few
 // instructions for all of a lane's rows, not a few per row), no row bounds
-// on full sub-tiles, 32-bit row numbers, and 32-bit compares for int32
-// columns whose constants fit (narrow_int_leaves). Each consumer warp's
+// on full sub-tiles, 32-bit row numbers, and 32-bit compares for columns
+// that fit int32 whose constants fit too (narrow_int_leaves); each column is
+// read from the stage at its stored width, 1 to 8 bytes (load_tile, one
+// switch on its dtype a leaf). Each consumer warp's
 // 32 x TILE_K rows give TILE_K words by __ballot_sync, exactly the
 // little-endian words of the first design, bit for bit.
 #include "staging.cuh"

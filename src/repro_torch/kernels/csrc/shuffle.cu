@@ -41,8 +41,11 @@
 // interior and ordinary loads for a view's unaligned head and tail rows.
 // Eight consumer warps each take a sub-tile of 32 x TILE_K rows of the
 // ready stage: eval_staged gives the keep bits (narrow_int_leaves'
-// 32-bit compares), the staged keys' low 32 bits give the targets, and the
-// warp releases the stage before it writes anything. Words come from one
+// 32-bit compares), the staged keys' low 32 bits give the targets (a key
+// of any integer width or bool, a signed one sign-extended, as numpy's
+// astype(np.uint64) does; 1- and 2-byte keys run in kernels of their own,
+// so those of 4- and 8-byte keys keep their registers), and the warp
+// releases the stage before it writes anything. Words come from one
 // __ballot_sync per row group, exactly as predicate_bitmap.cu's; lane l
 // writes the pids of rows base + 32k + l, so each store of the warp is 128
 // contiguous bytes. At P <= REG_TARGETS each lane counts its kept rows per
@@ -52,8 +55,9 @@
 // matching. Counts are integers, so the histogram is bitwise whatever the
 // order. The program's pooled IN lists are copied at block start into the
 // block's shared memory when they fit beside the stages and the counters,
-// each as entries of its comparison type (an int32 column's int64 list
-// narrowed to its values in int32 range: no other value can equal a row)
+// each as entries of its comparison type (the int64 list of a column that
+// fits int32 narrowed to its values in int32 range: no other value can
+// equal a row)
 // laid out as a breadth-first search tree, whose first six levels sit in
 // distinct banks, and the pooled leaf searches that copy (ShufflePool); a
 // pool too large for shared memory is searched in device memory. Where
@@ -162,8 +166,9 @@ hash_partition_kernel(const K* __restrict__ keys, long long R, unsigned P,
 struct ShuffleArgs {
   long long R;
   unsigned n_targets;
-  int key_shift;  // the low 32 bits of row r's key: staged 32-bit word
-                  // r << key_shift (int32 or int64 keys, little-endian)
+  int key_shift;  // 4- and 8-byte keys: the low 32 bits of row r's key are
+                  // staged 32-bit word r << key_shift (little-endian)
+  int key_dt;     // 1- and 2-byte keys: their dtype (program.cuh)
   int hist_off;   // byte offset of the shared counters
   int pool_off;   // byte offset of the shared pool; -1: not staged
   unsigned* words;
@@ -230,7 +235,7 @@ __device__ __forceinline__ void stage_pool(const PredProgram& P,
   for (int i = 0; i < P.n_ops; ++i) {
     const int4 op = P.ops[i];
     if ((op.x & 15) != K_IN_POOL || op.w == 0) continue;
-    const int mode = (op.x >> 8) & 3, d = levels(op.w);
+    const int mode = (op.x >> 8) & 7, d = levels(op.w);
     unsigned char* dst = pool + (op.x >> POOL_OFF_SHIFT);
     for (int j = threadIdx.x + 1; j < 1 << d; j += blockDim.x) {
       // node j on level l holds the in-order rank (2 (j - 2^l) + 1) 2^(d-l-1) - 1
@@ -247,27 +252,68 @@ __device__ __forceinline__ void stage_pool(const PredProgram& P,
   }
 }
 
+// The low 32 bits of the staged keys of the lane's rows r0 + 32 * k, read
+// as K (a signed key sign-extended, as numpy's astype(np.uint64) does);
+// an 8-byte key's low word is the 32-bit word 2r (little-endian).
+template <typename K, int SHIFT, bool WHOLE>
+__device__ __forceinline__ void staged_keys(const unsigned char* p, int r0,
+                                            int n, unsigned (&key)[TILE_K]) {
+  const K* kp = reinterpret_cast<const K*>(p);
+#pragma unroll
+  for (int k = 0; k < TILE_K; ++k) {
+    const int r = r0 + 32 * k;
+    key[k] = WHOLE || r < n ? (unsigned)kp[r << SHIFT] : 0u;
+  }
+}
+
+// The staged 1- or 2-byte keys of dtype dt (bool, uint8, int8, int16 or
+// uint16), one switch outside the row loop.
+template <bool WHOLE>
+__device__ __forceinline__ void narrow_keys(int dt, const unsigned char* p,
+                                            int r0, int n,
+                                            unsigned (&key)[TILE_K]) {
+  switch (dt) {
+    case DT_BOOL:
+    case DT_U8: staged_keys<unsigned char, 0, WHOLE>(p, r0, n, key); return;
+    case DT_I8: staged_keys<signed char, 0, WHOLE>(p, r0, n, key); return;
+    case DT_I16: staged_keys<short, 0, WHOLE>(p, r0, n, key); return;
+    default: staged_keys<unsigned short, 0, WHOLE>(p, r0, n, key); return;
+  }
+}
+
 // A consumer warp's sub-tile of the staged tile (lane l: rows r0 + 32 * k,
 // r0 = the sub-tile's base + l): the keep bits, every row's target in pid.
-template <int W, bool WHOLE>
+// NARROW: 1- or 2-byte keys (another instantiation, so the kernels of 4-
+// and 8-byte keys keep the registers they had).
+template <int W, bool WHOLE, bool NARROW>
 __device__ __forceinline__ unsigned read_sub_tile(
     const StagedProgram& S, const StageLayout& L, const unsigned char* st,
     const ShufflePool& pool, const ShuffleArgs& A, int r0, int n,
     unsigned (&pid)[TILE_K]) {
-  const unsigned* key =
-      reinterpret_cast<const unsigned*>(st + L.off[L.n_cols - 1]);
   unsigned in = 0u;
+  if constexpr (NARROW) {
+    unsigned key[TILE_K];
+    narrow_keys<WHOLE>(A.key_dt, st + L.off[L.n_cols - 1], r0, n, key);
 #pragma unroll
-  for (int k = 0; k < TILE_K; ++k) {
-    const int r = r0 + 32 * k;
-    const bool ok = WHOLE || r < n;
-    pid[k] = knuth_target(ok ? key[r << A.key_shift] : 0u, A.n_targets);
-    in |= ok ? 1u << k : 0u;
+    for (int k = 0; k < TILE_K; ++k) {
+      pid[k] = knuth_target(key[k], A.n_targets);
+      in |= WHOLE || r0 + 32 * k < n ? 1u << k : 0u;
+    }
+  } else {
+    const unsigned* key =
+        reinterpret_cast<const unsigned*>(st + L.off[L.n_cols - 1]);
+#pragma unroll
+    for (int k = 0; k < TILE_K; ++k) {
+      const int r = r0 + 32 * k;
+      const bool ok = WHOLE || r < n;
+      pid[k] = knuth_target(ok ? key[r << A.key_shift] : 0u, A.n_targets);
+      in |= ok ? 1u << k : 0u;
+    }
   }
   return S.p.n_ops ? eval_staged<W, WHOLE>(S, st, L.off, r0, n, pool) : in;
 }
 
-template <int W, bool REG>
+template <int W, bool REG, bool NARROW>
 __global__ void __launch_bounds__(THREADS, SHUFFLE_BLOCKS_PER_SM)
 fused_scan_shuffle_kernel(const __grid_constant__ StagedProgram S,
                           const __grid_constant__ StageLayout L,
@@ -308,8 +354,10 @@ fused_scan_shuffle_kernel(const __grid_constant__ StagedProgram S,
       unsigned keep = 0u, pid[TILE_K];
       if (base < n)
         keep = whole
-                   ? read_sub_tile<W, true>(S, L, st, pool, A, rb, n, pid)
-                   : read_sub_tile<W, false>(S, L, st, pool, A, rb, n, pid);
+                   ? read_sub_tile<W, true, NARROW>(S, L, st, pool, A, rb,
+                                                    n, pid)
+                   : read_sub_tile<W, false, NARROW>(S, L, st, pool, A, rb,
+                                                     n, pid);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
       if (++s == L.n_stages) { s = 0; phase ^= 1u; }
@@ -356,43 +404,68 @@ static long long grid_for(long long R, int max_blocks) {
   return blocks > max_blocks ? max_blocks : blocks;
 }
 
-// key_dt: DT_I32 or DT_I64 (program.cuh). pids (R,) int32; hist (P,) u64,
+// Whether a dtype code is a key's: a bool or an integer.
+static bool key_dtype(int dt) {
+  return dt == DT_BOOL || dt == DT_U8 || dt == DT_I8 || dt == DT_I16 ||
+         dt == DT_U16 || dt == DT_I32 || dt == DT_U32 || dt == DT_I64 ||
+         dt == DT_U64;
+}
+
+template <typename K>
+static void launch_hash(const void* keys, long long R, int P, int* pids,
+                        unsigned long long* hist, unsigned blocks,
+                        cudaStream_t s) {
+  const size_t smem = (size_t)P * sizeof(unsigned);
+  hash_partition_kernel<K><<<blocks, HASH_THREADS, smem, s>>>(
+      static_cast<const K*>(keys), R, (unsigned)P, pids, hist);
+}
+
+// key_dt: a bool or integer dtype (program.cuh), read at its stored width,
+// one instantiation a width and signedness (the hash needs the key's low 32
+// bits, a signed key sign-extended). pids (R,) int32; hist (P,) u64,
 // zeroed by the caller. 1 <= P <= MAX_TARGETS.
 extern "C" int hash_partition_launch(const void* keys, int key_dt,
                                      long long R, int P, void* pids,
                                      void* hist, int max_blocks,
                                      void* stream) {
-  if (P < 1 || P > MAX_TARGETS || (key_dt != DT_I32 && key_dt != DT_I64))
+  if (P < 1 || P > MAX_TARGETS || !key_dtype(key_dt))
     return (int)cudaErrorInvalidValue;
   if (R > 0) {
     const unsigned blocks = (unsigned)grid_for(R, max_blocks);
-    const size_t smem = (size_t)P * sizeof(unsigned);
     cudaStream_t s = (cudaStream_t)stream;
     int* pd = static_cast<int*>(pids);
     unsigned long long* h = static_cast<unsigned long long*>(hist);
-    if (key_dt == DT_I32)
-      hash_partition_kernel<int><<<blocks, HASH_THREADS, smem, s>>>(
-          static_cast<const int*>(keys), R, (unsigned)P, pd, h);
-    else
-      hash_partition_kernel<long long><<<blocks, HASH_THREADS, smem, s>>>(
-          static_cast<const long long*>(keys), R, (unsigned)P, pd, h);
+    switch (key_dt) {
+      case DT_BOOL:
+      case DT_U8:
+        launch_hash<unsigned char>(keys, R, P, pd, h, blocks, s); break;
+      case DT_I8:
+        launch_hash<signed char>(keys, R, P, pd, h, blocks, s); break;
+      case DT_I16: launch_hash<short>(keys, R, P, pd, h, blocks, s); break;
+      case DT_U16:
+        launch_hash<unsigned short>(keys, R, P, pd, h, blocks, s); break;
+      case DT_I32:
+      case DT_U32: launch_hash<unsigned>(keys, R, P, pd, h, blocks, s); break;
+      default: launch_hash<unsigned long long>(keys, R, P, pd, h, blocks, s);
+    }
   }
   return (int)cudaGetLastError();
 }
 
-// Host side: an int32 column's pooled IN that compares in int64 compares in
-// int32 over the part of its sorted list within int32's range (host_pool:
-// the pool's host copy); no value outside it can equal a row.
+// Host side: the pooled IN of a column that fits int32 (program.cuh's
+// fits_i32) that compares in int64 compares in int32 over the part of its
+// sorted list within int32's range (host_pool: the pool's host copy); no
+// value outside it can equal a row.
 static void narrow_pool_leaves(PredProgram* P, const long long* host_pool) {
   for (int i = 0; i < P->n_ops; ++i) {
     const int4 op = P->ops[i];
-    if ((op.x & 15) != K_IN_POOL || ((op.x >> 8) & 3) != MODE_I64 ||
-        P->dtypes[op.y] != DT_I32)
+    if ((op.x & 15) != K_IN_POOL || ((op.x >> 8) & 7) != MODE_I64 ||
+        !fits_i32(P->dtypes[op.y]))
       continue;
     const long long* a = host_pool + op.z;
     const int lo = (int)(std::lower_bound(a, a + op.w, -2147483648ll) - a);
     const int hi = (int)(std::upper_bound(a, a + op.w, 2147483647ll) - a);
-    P->ops[i] = make_int4((op.x & ~(3 << 8)) | (MODE_I32 << 8), op.y,
+    P->ops[i] = make_int4((op.x & ~(7 << 8)) | (MODE_I32 << 8), op.y,
                           op.z + lo, hi - lo);
   }
 }
@@ -406,23 +479,34 @@ static long long place_pool(PredProgram* P, bool place) {
     const int4 op = P->ops[i];
     if ((op.x & 15) != K_IN_POOL || op.w == 0) continue;
     if (place) P->ops[i].x |= (int)(at << POOL_OFF_SHIFT);
-    at += (1ll << levels(op.w)) * pool_entry_bytes((op.x >> 8) & 3);
+    at += (1ll << levels(op.w)) * pool_entry_bytes((op.x >> 8) & 7);
   }
   return at;
 }
 
-template <int W, bool REG>
+template <int W, bool REG, bool NARROW>
 static int launch_shuffle(const StagedProgram& S, const StageLayout& L,
                           const ShuffleArgs& A, unsigned blocks, size_t smem,
                           cudaStream_t stream) {
   static const int opted = (int)cudaFuncSetAttribute(
-      fused_scan_shuffle_kernel<W, REG>,
+      fused_scan_shuffle_kernel<W, REG, NARROW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_PER_SM - SMEM_RESERVED);  // above 48 KB only after opting in
   if (opted) return opted;
-  fused_scan_shuffle_kernel<W, REG><<<blocks, THREADS, smem, stream>>>(S, L,
-                                                                      A);
+  fused_scan_shuffle_kernel<W, REG, NARROW>
+      <<<blocks, THREADS, smem, stream>>>(S, L, A);
   return 0;
+}
+
+template <int W>
+static int launch_w(bool reg, bool narrow, const StagedProgram& S,
+                    const StageLayout& L, const ShuffleArgs& A,
+                    unsigned blocks, size_t smem, cudaStream_t stream) {
+  if (narrow)
+    return reg ? launch_shuffle<W, true, true>(S, L, A, blocks, smem, stream)
+               : launch_shuffle<W, false, true>(S, L, A, blocks, smem, stream);
+  return reg ? launch_shuffle<W, true, false>(S, L, A, blocks, smem, stream)
+             : launch_shuffle<W, false, false>(S, L, A, blocks, smem, stream);
 }
 
 // The program arguments as predicate_bitmap_launch takes them, then the
@@ -435,8 +519,8 @@ extern "C" int fused_scan_shuffle_launch(
     const long long* pool, int n_pool, const long long* host_pool,
     const void* keys, int key_dt, long long R, int n_targets, void* words,
     void* pids, void* hist, int sms, void* stream, int* info) {
-  if (n_targets < 1 || n_targets > MAX_TARGETS ||
-      (key_dt != DT_I32 && key_dt != DT_I64) || sms < 1 ||
+  if (n_targets < 1 || n_targets > MAX_TARGETS || !key_dtype(key_dt) ||
+      sms < 1 ||
       (n_pool > 0 && host_pool == nullptr))
     return (int)cudaErrorInvalidValue;
   PredProgram P;
@@ -485,7 +569,8 @@ extern "C" int fused_scan_shuffle_launch(
   ShuffleArgs A;
   A.R = R;
   A.n_targets = (unsigned)n_targets;
-  A.key_shift = key_dt == DT_I64 ? 1 : 0;
+  A.key_shift = dtype_size(key_dt) == 8 ? 1 : 0;
+  A.key_dt = key_dt;
   A.hist_off = HEADER + L.n_stages * L.stage_bytes;
   A.pool_off = staged ? A.hist_off + (int)hist_bytes : -1;
   A.words = static_cast<unsigned*>(words);
@@ -496,13 +581,11 @@ extern "C" int fused_scan_shuffle_launch(
   const unsigned blocks = (unsigned)(n_tiles < cap ? n_tiles : cap);
   cudaStream_t s = (cudaStream_t)stream;
   const bool reg = n_targets <= REG_TARGETS;
-  if (stack_depth(S.p) <= 8)
-    err = reg ? launch_shuffle<1, true>(S, L, A, blocks, smem, s)
-              : launch_shuffle<1, false>(S, L, A, blocks, smem, s);
-  else
-    err = reg ? launch_shuffle<PP_MAX_DEPTH / 8, true>(S, L, A, blocks, smem, s)
-              : launch_shuffle<PP_MAX_DEPTH / 8, false>(S, L, A, blocks, smem,
-                                                         s);
+  const bool narrow = dtype_size(key_dt) < 4;
+  err = stack_depth(S.p) <= 8
+            ? launch_w<1>(reg, narrow, S, L, A, blocks, smem, s)
+            : launch_w<PP_MAX_DEPTH / 8>(reg, narrow, S, L, A, blocks, smem,
+                                         s);
   if (err) return err;
   if (info) {
     const int plan[6] = {(int)blocks, bps, L.n_stages, L.tile_rows,

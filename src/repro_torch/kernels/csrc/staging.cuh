@@ -38,7 +38,11 @@ struct StageLayout {
   int n_cols, n_stages, tile_rows, stage_bytes;
 };
 
-// The producer warp: stage tile rows [r0, r0 + n) of every column.
+// The producer warp: stage tile rows [r0, r0 + n) of every column. A
+// column's values are 1, 2, 4 or 8 bytes; a tile's rows start at a
+// multiple of 16 bytes from the column's row 0 (tile_rows is a multiple of
+// 16), so its head and tail, 15 bytes at most, are the same for every tile
+// but the last.
 __device__ __forceinline__ void fill_stage(const PredProgram& P,
                                            const StageLayout& L,
                                            unsigned char* st,
@@ -62,8 +66,13 @@ __device__ __forceinline__ void fill_stage(const PredProgram& P,
       if (sz == 8)
         reinterpret_cast<long long*>(row0)[i] =
             reinterpret_cast<const long long*>(a)[i];
-      else
+      else if (sz == 4)
         reinterpret_cast<int*>(row0)[i] = reinterpret_cast<const int*>(a)[i];
+      else if (sz == 2)
+        reinterpret_cast<short*>(row0)[i] =
+            reinterpret_cast<const short*>(a)[i];
+      else
+        row0[i] = reinterpret_cast<const unsigned char*>(a)[i];
     }
   }
   if (lane == 0) {
@@ -135,7 +144,7 @@ static bool plan_stages(StageLayout* L, const int* dtypes, int n_cols,
   memset(L, 0, sizeof(*L));
   L->n_cols = n_cols;
   for (int c = 0; c < n_cols; ++c)
-    L->size[c] = (dtypes[c] == DT_I64 || dtypes[c] == DT_F64) ? 8 : 4;
+    L->size[c] = dtype_size(dtypes[c]);
   for (int T = CONSUMER_WARPS * SUB_ROWS;; T /= 2) {
     int bytes = 0;
     for (int c = 0; c < n_cols; ++c) {

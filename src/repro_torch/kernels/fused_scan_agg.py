@@ -27,9 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, _launch, ref
-from repro_torch.kernels.program import Program
+from repro_torch.kernels.program import DTYPE_CODES, Program
 
-VALUE_DTYPES = (torch.float32, torch.float64)
+VALUE_DTYPES = tuple(DTYPE_CODES)  # read at their stored width
 MAX_VALUES = 4  # csrc/fused_scan_agg.cu: Q1's four sums in one launch
 
 
@@ -48,8 +48,9 @@ def fused_scan_agg(prog: Optional[Program], cols: Sequence[torch.Tensor],
                    num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sums (V, G) f64, one row per value column, counts (G,) int64) over
     the rows that pass ``prog`` (all rows when None) and whose int32 id
-    lies in [0, G). ``values`` holds 0 to ``MAX_VALUES`` f32 or f64
-    columns (none: counts only)."""
+    lies in [0, G). ``values`` holds 0 to ``MAX_VALUES`` columns of any
+    ``DTYPE_CODES`` dtype (none: counts only), each read at its stored
+    width and summed as f64, as the reference sums ``astype(float64)``."""
     if isinstance(values, torch.Tensor) or len(values) > MAX_VALUES:
         raise ValueError(f"values must be a sequence of at most {MAX_VALUES} "
                          f"columns")
@@ -67,11 +68,11 @@ def fused_scan_agg(prog: Optional[Program], cols: Sequence[torch.Tensor],
         return sums, counts
     args, _keep = _launch.program_args(prog, cols if prog is not None else ())
     vptr = np.asarray([v.data_ptr() for v in values] or [0], np.int64)
-    vf64 = np.asarray([v.dtype == torch.float64 for v in values] or [0],
-                      np.int32)
+    vdt = np.asarray([DTYPE_CODES[v.dtype] for v in values] or [0],
+                     np.int32)
     lib = _build.library("fused_scan_agg")
     _launch.raise_on(lib.fused_scan_agg_launch(
-        *args, ids.data_ptr(), vptr.ctypes.data, vf64.ctypes.data, V, R, G,
+        *args, ids.data_ptr(), vptr.ctypes.data, vdt.ctypes.data, V, R, G,
         sums.data_ptr(), counts.data_ptr(), _launch.sm_count(dev),
         _launch.stream_of(dev)), "fused_scan_agg")
     fused_scan_agg.launches += 1

@@ -139,8 +139,9 @@ def plan(R: int, G: int, sms: int, regime: Optional[str] = None) -> Plan:
 def grouped_agg(ids: torch.Tensor, values: Optional[torch.Tensor],
                 num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sums (G,) f64, counts (G,) int64) over the rows whose int32 id lies
-    in [0, G). ``values`` may be f32, f64, or None for counts only. On the
-    card ``plan`` picks the regime; ``run_plan`` launches a given plan."""
+    in [0, G). ``values`` may be a column of any ``DTYPE_CODES`` dtype,
+    read at its stored width, or None for counts only. On the card
+    ``plan`` picks the regime; ``run_plan`` launches a given plan."""
     check_agg_inputs(ids, () if values is None else (values,), num_groups)
     R, dev, G = ids.shape[0], ids.device, num_groups
     if dev.type == "cpu":

@@ -3,10 +3,12 @@
 Replaces the TPU kernel ``repro/kernels/hash_partition.py::hash_partition``
 (its ``pl.pallas_call``, a Knuth hash in uint32 lanes plus a one-hot MXU
 histogram per block). The CUDA kernel (``csrc/shuffle.cu``) hashes the
-keys' low 32 bits in uint32 arithmetic and counts targets in shared memory,
-grouping a warp's rows by target with ``__match_any_sync``, then adds each
-block's counters to the global histogram. It takes any R (no padding rows
-to subtract) and int32 or int64 keys. It carries the shuffle by-product of
+keys' low 32 bits in uint32 arithmetic (a key read at its stored width, a
+signed one sign-extended, as numpy's ``astype(np.uint64)`` does) and counts
+targets in shared memory, grouping a warp's rows by target with
+``__match_any_sync``, then adds each block's counters to the global
+histogram. It takes any R (no padding rows to subtract) and a key of any
+``KEY_DTYPES`` dtype. It carries the shuffle by-product of
 plans whose output is not a filter of stored rows: no predicate, an
 aggregate shuffled on a group key, or a derived key.
 
@@ -22,7 +24,10 @@ import torch
 from repro_torch.kernels import _build, _launch, ref
 from repro_torch.kernels.program import DTYPE_CODES
 
-KEY_DTYPES = (torch.int32, torch.int64)
+# a bool or integer key at its stored width (a float key's uint64 is
+# numpy's platform-defined cast: only the plain version takes one)
+KEY_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.uint16,
+              torch.int32, torch.uint32, torch.int64, torch.uint64)
 MAX_TARGETS = 8192  # csrc/shuffle.cu: shared-memory counters per block
 
 

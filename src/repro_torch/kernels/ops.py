@@ -31,6 +31,7 @@ from repro_torch.kernels import predicate_bitmap as _pb
 from repro_torch.kernels.program import SplitProgram, program_for
 from repro_torch.kernels.ref import unpack_bitmap
 from repro_torch.queryproc.expressions import Expr
+from repro_torch.queryproc.table import gather
 
 
 def predicate_bitmap(cols: Dict[str, torch.Tensor], expr: Expr
@@ -71,7 +72,7 @@ def fused_scan_agg(cols: Dict[str, torch.Tensor], expr: Optional[Expr],
     vals = [] if values is None else [values]
     if isinstance(prog, SplitProgram):
         _, idx = _kept_rows(prog, cols)
-        prog, ids, vals = None, ids[idx], [v[idx] for v in vals]
+        prog, ids, vals = None, ids[idx], [gather(v, idx) for v in vals]
     pcols = [cols[n] for n in prog.columns] if prog is not None else []
     sums, counts = _fsa.fused_scan_agg(prog, pcols, ids, vals, num_groups)
     return _outputs(sums[0] if values is not None else

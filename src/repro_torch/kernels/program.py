@@ -18,12 +18,19 @@ Op encoding, one int32 quad ``(code, col, x, y)`` per op, with
   binary-searches (an ``In`` of more than ``INLINE_IN_MAX`` values)
 - ``AND``/``OR``: pop two, push the result
 
-``mode`` is the type the comparison runs in, chosen by
-``expressions.compare_dtype`` (numpy's rules): int64, float32 or float64.
-The pool holds int64 values, or the bits of f64 values for the float
-modes (rounded to f32 first in f32 mode); it goes to the device once per
-program (``Program.pool_on``) and the kernels take it by pointer. The
-stack is one 32-bit register, so a program may nest 32 deep.
+``mode`` (3 bits) is how the comparison runs, chosen by
+``expressions.compare_dtype`` (numpy's rules): exact int64, exact
+unsigned 64-bit, a uint64 column against a signed one, float32 or
+float64; the launch may narrow an int64 leaf to int32 (``MODE_I32`` in
+``csrc/program.cuh``). A column may hold any dtype of ``DTYPE_CODES``;
+the kernels load it at its stored width and convert it to the mode's
+type. Constants come rounded and in range (``cmp_leaf``, ``in_leaf``):
+integers as int64 (a uint64 one as its bits), floats as f64 values. The
+pool holds int64 values (the bits of uint64 ones, in unsigned order), or
+the bits of f64 values for the float modes (rounded to f32 first in f32
+mode); it goes to the device once per program (``Program.pool_on``) and
+the kernels take it by pointer. The stack is one 32-bit register, so a
+program may nest 32 deep.
 
 A predicate past the by-value limits (``MAX_OPS`` ops, ``MAX_CONSTS``
 inline constants, ``MAX_COLS`` columns, depth ``MAX_DEPTH``) compiles to
@@ -41,9 +48,14 @@ import torch
 from repro_torch.queryproc import expressions as ex
 
 K_CMP, K_CMP_COL, K_IN, K_AND, K_OR, K_IN_POOL = range(6)
-MODES = (torch.int64, torch.float32, torch.float64)
+# expressions.compare_dtype's modes -> the mode field (csrc/program.cuh:
+# 3 is MODE_I32)
+MODE_CODES = {"i64": 0, "f32": 1, "f64": 2, "u64": 4, "mixed": 5}
+MODE_OF = {v: k for k, v in MODE_CODES.items()}
 DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
-               torch.float64: 3}
+               torch.float64: 3, torch.bool: 4, torch.uint8: 5,
+               torch.int8: 6, torch.int16: 7, torch.uint16: 8,
+               torch.uint32: 9, torch.uint64: 10, torch.float16: 11}
 
 # limits of the kernels' by-value parameter block (csrc/program.cuh)
 MAX_OPS, MAX_CONSTS, MAX_COLS, MAX_DEPTH = 64, 64, 8, 32
@@ -88,14 +100,22 @@ class SplitProgram:
         return tuple(sorted(set(self.left.columns) | set(self.right.columns)))
 
 
-def _pooled(vals, mode: torch.dtype) -> np.ndarray:
-    """A pooled In list: sorted, deduplicated, NaN dropped (it matches no
-    row), as int64 values or the bits of f64 ones."""
-    arr = np.asarray(vals).reshape(-1)
-    if mode == torch.int64:
-        return np.unique(arr.astype(np.int64))
-    v = arr.astype(np.float32 if mode == torch.float32 else np.float64)
-    return np.unique(v[~np.isnan(v)]).astype(np.float64).view(np.int64)
+def _int_bits(vals, mode: str) -> np.ndarray:
+    """Integer constants (in the mode's range) as int64: a uint64 mode's as
+    the bits of their uint64 values."""
+    return np.asarray(vals, np.uint64 if mode == "u64" else np.int64
+                      ).reshape(-1).view(np.int64)
+
+
+def _pooled(vals, mode: str) -> np.ndarray:
+    """A pooled In list of ``in_leaf`` constants: sorted (a uint64 mode's
+    in unsigned order), deduplicated, NaN dropped (it matches no row), as
+    int64 values or the bits of f64 ones."""
+    if mode in ("i64", "u64"):
+        return _int_bits(np.unique(np.asarray(
+            vals, np.uint64 if mode == "u64" else np.int64)), mode)
+    v = np.asarray(vals, np.float64)
+    return np.unique(v[~np.isnan(v)]).view(np.int64)
 
 
 def _encode(expr: ex.Expr, dtypes: Dict[str, torch.dtype]
@@ -115,43 +135,41 @@ def _encode(expr: ex.Expr, dtypes: Dict[str, torch.dtype]
         depth[0] += 1
         depth[1] = max(depth[1], depth[0])
 
-    def const(vals, mode: torch.dtype) -> int:
+    def const(vals, mode: str) -> int:
         start = len(fc)
-        arr = np.asarray(vals)
-        if mode == torch.int64:
-            ic.extend(int(v) for v in arr.reshape(-1))
-            fc.extend(0.0 for _ in arr.reshape(-1))
+        if mode in ("i64", "u64"):
+            ic.extend(_int_bits(vals, mode).tolist())
+            fc.extend(0.0 for _ in vals)
         else:
-            np_t = np.float32 if mode == torch.float32 else np.float64
-            fc.extend(float(v) for v in arr.astype(np_t).reshape(-1))
-            ic.extend(0 for _ in arr.reshape(-1))
+            fc.extend(float(v) for v in vals)
+            ic.extend(0 for _ in vals)
         return start
 
     def walk(e):
         if isinstance(e, ex.Cmp):
-            cmp = ex.CMP_OPS.index(e.op)
             dt = dtypes[e.col.name]
             if isinstance(e.value, ex.Col):
                 mode = ex.compare_dtype(dt, dtypes[e.value.name])
-                ops.append((K_CMP_COL | cmp << 4 | MODES.index(mode) << 8,
-                            slot[e.col.name], slot[e.value.name], 0))
+                ops.append((K_CMP_COL | ex.CMP_OPS.index(e.op) << 4
+                            | MODE_CODES[mode] << 8, slot[e.col.name],
+                            slot[e.value.name], 0))
             else:
-                mode = ex.compare_dtype(dt, e.value)
-                ops.append((K_CMP | cmp << 4 | MODES.index(mode) << 8,
-                            slot[e.col.name], const(e.value, mode), 0))
-            push()
-        elif isinstance(e, ex.In) and len(e.values) > INLINE_IN_MAX:
-            mode = ex.compare_dtype(dtypes[e.col.name], e.values)
-            vals = _pooled(e.values, mode)
-            ops.append((K_IN_POOL | MODES.index(mode) << 8,
-                        slot[e.col.name], n_pool[0], len(vals)))
-            pool.append(vals)
-            n_pool[0] += len(vals)
+                mode, op, c = ex.cmp_leaf(e.op, dt, e.value)
+                ops.append((K_CMP | ex.CMP_OPS.index(op) << 4
+                            | MODE_CODES[mode] << 8, slot[e.col.name],
+                            const([c], mode), 0))
             push()
         elif isinstance(e, ex.In):
-            mode = ex.compare_dtype(dtypes[e.col.name], e.values)
-            ops.append((K_IN | MODES.index(mode) << 8, slot[e.col.name],
-                        const(e.values, mode), len(e.values)))
+            mode, vals = ex.in_leaf(dtypes[e.col.name], e.values)
+            if len(e.values) > INLINE_IN_MAX:
+                vals = _pooled(vals, mode)
+                ops.append((K_IN_POOL | MODE_CODES[mode] << 8,
+                            slot[e.col.name], n_pool[0], len(vals)))
+                pool.append(vals)
+                n_pool[0] += len(vals)
+            else:
+                ops.append((K_IN | MODE_CODES[mode] << 8, slot[e.col.name],
+                            const(vals, mode), len(vals)))
             push()
         elif isinstance(e, (ex.And, ex.Or)):
             walk(e.left)

@@ -14,9 +14,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.program import (K_AND, K_CMP, K_CMP_COL, K_IN,
-                                         K_IN_POOL, MODES, Program)
-
-_CMP = (torch.le, torch.lt, torch.ge, torch.gt, torch.eq)  # CMP_OPS order
+                                         K_IN_POOL, MODE_OF, Program)
+from repro_torch.queryproc import expressions as ex
+from repro_torch.queryproc.table import as_float64, as_int64, signed_view
 
 
 def words_from_uint32(w: torch.Tensor) -> torch.Tensor:
@@ -48,27 +48,29 @@ def run_program(prog: Program, cols: Sequence[torch.Tensor]) -> torch.Tensor:
     the row mask the CUDA device function computes row by row."""
     stack = []
     for code, c, x, y in prog.ops.tolist():
-        kind, cmp, mode = code & 15, (code >> 4) & 7, MODES[(code >> 8) & 3]
-        if kind in (K_CMP, K_IN):
-            a = cols[c].to(mode)
-            pool = prog.iconst if mode == torch.int64 else prog.fconst
-            consts = torch.as_tensor(pool[x:x + (y if kind == K_IN else 1)],
-                                     device=a.device).to(mode)
-            if kind == K_CMP:
-                stack.append(_CMP[cmp](a, consts[0]))
+        kind, mode = code & 15, MODE_OF.get((code >> 8) & 7)
+        op = ex.CMP_OPS[(code >> 4) & 7]
+        if kind in (K_CMP, K_IN, K_IN_POOL):
+            a = ex.mode_key(cols[c], mode)
+            if kind == K_IN_POOL:
+                consts = prog.pool[x:x + y]
             else:
-                hit = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
-                for v in consts:
-                    hit |= a == v
-                stack.append(hit)
-        elif kind == K_IN_POOL:
-            vals = prog.pool[x:x + y]
-            if mode != torch.int64:
-                vals = vals.view(np.float64)
-            stack.append(torch.isin(cols[c].to(mode), torch.from_numpy(
-                vals).to(device=cols[c].device, dtype=mode)))
+                consts = (prog.iconst if mode in ("i64", "u64")
+                          else prog.fconst)[x:x + (y if kind == K_IN else 1)]
+            if mode == "u64":  # the constants' bits, in the key space
+                consts = consts ^ np.int64(-2 ** 63)
+            elif mode in ("f32", "f64") and kind == K_IN_POOL:
+                consts = consts.view(np.float64)
+            consts = torch.from_numpy(np.ascontiguousarray(consts)).to(
+                device=a.device, dtype=a.dtype)
+            stack.append(ex.TORCH_OPS[op](a, consts[0]) if kind == K_CMP
+                         else torch.isin(a, consts))
         elif kind == K_CMP_COL:
-            stack.append(_CMP[cmp](cols[c].to(mode), cols[x].to(mode)))
+            if mode == "mixed":
+                stack.append(ex.compare_mixed(op, cols[c], cols[x]))
+            else:
+                stack.append(ex.TORCH_OPS[op](ex.mode_key(cols[c], mode),
+                                               ex.mode_key(cols[x], mode)))
         else:
             r, l_ = stack.pop(), stack.pop()
             stack.append(l_ & r if kind == K_AND else l_ | r)
@@ -96,7 +98,7 @@ def fused_scan_agg(prog: Optional[Program], cols: Sequence[torch.Tensor],
     sums = torch.zeros((len(values), num_groups), dtype=torch.float64,
                        device=ids.device)
     for row, v in zip(sums, values):
-        row.index_add_(0, g, v[keep].to(torch.float64))
+        row.index_add_(0, g, as_float64(v)[keep])
     return sums, counts
 
 
@@ -115,9 +117,10 @@ def bitmap_apply(words: torch.Tensor, col: torch.Tensor
     """(the column with the rows the words drop zeroed (R,), the number of
     selected rows as a 0-d int64 tensor). Bits past R are ignored."""
     keep = unpack_bitmap(words, col.shape[0])
-    masked = torch.where(keep, col, torch.zeros((), dtype=col.dtype,
+    raw = signed_view(col)  # dropped rows get all-zero bits
+    masked = torch.where(keep, raw, torch.zeros((), dtype=raw.dtype,
                                                 device=col.device))
-    return masked, keep.sum()
+    return masked.view(col.dtype), keep.sum()
 
 
 def bitmap_apply_segments(words: Sequence[torch.Tensor],
@@ -144,15 +147,25 @@ KNUTH = 2654435761
 
 
 def hash_partition_ids(keys: torch.Tensor, n_parts: int) -> torch.Tensor:
-    """Knuth multiplicative hash of the keys' low 32 bits:
-    ``((low32(key) * 2654435761 mod 2**32) >> 16) mod n`` as int32. The
-    product is formed from the key's 16-bit halves, so no int64 product
+    """Knuth multiplicative hash of the low 32 bits of
+    ``keys.astype(np.uint64)`` (a signed key sign-extended, a bool 0 or 1,
+    a float truncated toward zero): ``((low32(key) * 2654435761 mod 2**32)
+    >> 16) mod n`` as int32. A negative, non-finite or at least 2**64 float
+    has a platform-defined uint64 in numpy, so it raises ``ValueError``.
+    The product is formed from the key's 16-bit halves, so no int64 product
     passes 2**63 (a full ``low32(key) * KNUTH`` does once low32(key) nears
     3.47e9, as negative int32 keys do), and it is masked to 32 bits before
     the shift and the modulo."""
     if keys.is_floating_point():
-        raise TypeError("hash_partition_ids takes integer keys")
-    k = keys.to(torch.int64) & 0xFFFFFFFF
+        f = keys.to(torch.float64)
+        if bool(((f < 0) | ~torch.isfinite(f) | (f >= 2.0 ** 64)).any()):
+            raise ValueError("a float key's uint64 is platform-defined "
+                             "unless it is finite, >= 0 and < 2**64")
+        k = torch.fmod(torch.trunc(f), 2.0 ** 32).to(torch.int64)
+    elif keys.dtype == torch.uint64:
+        k = keys.view(torch.int64) & 0xFFFFFFFF
+    else:
+        k = as_int64(keys) & 0xFFFFFFFF
     lo, hi = k & 0xFFFF, k >> 16
     h = (lo * KNUTH + ((hi * KNUTH) & 0xFFFF) * 65536) & 0xFFFFFFFF
     return ((h >> 16) % n_parts).to(torch.int32)

@@ -1,13 +1,15 @@
 """Predicate expression trees: torch evaluation + selectivity estimation.
 
 Port of ``repro.queryproc.expressions``, ``implies`` included. The numpy
-engine compares a column with a constant under numpy's promotion rules
+engine compares a column with a constant under numpy 2.0.2's rules
 (NEP 50: a Python scalar is "weak", so an f32 column meets ``0.05`` in
-f32 while an i32 column meets it in f64). Torch promotes differently (an
-i32 tensor meets a Python float in f32), so every comparison here first
-casts both sides to ``compare_dtype`` — the one place the port states
+f32 while an i32 column meets it in f64; two integer sides compare
+exactly, an out-of-range Python int included). Torch promotes
+differently and has few kernels for uint16/32/64, so every comparison here
+runs in a mode of ``compare_dtype`` over keys of both sides
+(``cmp_leaf``, ``in_leaf``, ``mode_key``) — the one place the port states
 numpy's rules. The kernels' postfix programs
-(``repro_torch.kernels.program``) use the same function, so the GPU and
+(``repro_torch.kernels.program``) use the same functions, so the GPU and
 the numpy engine select the same rows.
 """
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.queryproc.table import ColumnStats
+from repro_torch.queryproc.table import (NP_OF, ColumnStats, as_float64,
+                                         as_int64)
 
 
 class Expr:
@@ -81,38 +84,140 @@ class Or(Expr):
 
 
 CMP_OPS = ("<=", "<", ">=", ">", "==")
-_TORCH_OPS = {"<=": torch.le, "<": torch.lt, ">=": torch.ge, ">": torch.gt,
+TORCH_OPS = {"<=": torch.le, "<": torch.lt, ">=": torch.ge, ">": torch.gt,
               "==": torch.eq}
-_NP_OF = {torch.int32: np.int32, torch.int64: np.int64,
-          torch.float32: np.float32, torch.float64: np.float64}
+_I64 = (-2 ** 63, 2 ** 63 - 1)
+_U64 = (0, 2 ** 64 - 1)
 
 
-def compare_dtype(col_dtype: torch.dtype, other) -> torch.dtype:
-    """The dtype numpy compares ``col <op> other`` in, as torch's int64,
-    float32 or float64. ``other`` is a column dtype (column-column
-    compare), a tuple (``In``: ``np.isin`` makes a strongly typed array of
-    it) or a scalar (weak when a Python number)."""
-    if col_dtype not in _NP_OF:
-        raise TypeError(f"unsupported column dtype {col_dtype}")
-    a = _NP_OF[col_dtype]
+def _np(dtype: torch.dtype) -> np.dtype:
+    if dtype not in NP_OF:
+        raise TypeError(f"unsupported column dtype {dtype}")
+    return np.dtype(NP_OF[dtype])
+
+
+def _weak(v) -> bool:
+    """A Python number, which numpy 2 types by the array it meets (NEP 50);
+    a numpy scalar keeps its own dtype."""
+    return isinstance(v, (bool, int, float)) and not isinstance(v, np.generic)
+
+
+def _int_like(v) -> bool:
+    return isinstance(v, (bool, int, np.integer, np.bool_))
+
+
+def compare_dtype(col_dtype: torch.dtype, other) -> str:
+    """The mode in which numpy 2.0.2 compares a column of ``col_dtype``
+    with ``other``: a column dtype (column-column), a tuple (``In``:
+    ``np.isin`` makes an array of it) or a scalar (weak when a Python
+    number). Two integer sides compare exactly, as numpy's comparison
+    loops do whatever their signedness and an out-of-range Python int:
+    ``"i64"`` (every bool and integer dtype but uint64), ``"u64"`` (unsigned
+    sides, one of them uint64) or ``"mixed"`` (a uint64 column against a
+    signed one); any float side compares in numpy's result type, ``"f32"``
+    (float16 too, which float32 orders exactly) or ``"f64"``."""
+    a = _np(col_dtype)
     if isinstance(other, torch.dtype):
-        rt = np.result_type(a, _NP_OF[other])
+        b = _np(other)
+        if a.kind in "biu" and b.kind in "biu":
+            if np.uint64 in (a, b):
+                return "u64" if a.kind in "bu" and b.kind in "bu" else \
+                    "mixed"
+            return "i64"
     elif isinstance(other, tuple):
-        rt = np.result_type(a, np.asarray(other).dtype)
+        if a.kind in "biu" and all(_int_like(v) for v in other):
+            return "u64" if a == np.uint64 else "i64"
+        b = np.asarray(other).dtype
+        if b == object:
+            raise TypeError(f"unsupported In list {other!r}")
+    elif _int_like(other) and a.kind in "biu":
+        return "u64" if a == np.uint64 else "i64"
+    elif _weak(other):
+        b = type(other)(0)  # numpy types a weak scalar by its kind alone
+    elif isinstance(other, np.generic):
+        b = other.dtype
     else:
-        rt = np.result_type(a, other)
-    if rt.kind in "iu":
-        return torch.int64  # exact for every int32/int64 operand
-    if rt == np.float32:
-        return torch.float32
-    if rt == np.float64:
-        return torch.float64
-    raise TypeError(f"unsupported comparison {col_dtype} vs {other!r}")
+        raise TypeError(f"unsupported comparison {col_dtype} vs {other!r}")
+    rt = np.result_type(a, b)
+    if rt.kind != "f":
+        raise TypeError(f"unsupported comparison {col_dtype} vs {other!r}")
+    return "f32" if rt.itemsize <= 4 else "f64"
 
 
-def _scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
-    # a float constant compared in f32 rounds to f32 first, as numpy does
-    return torch.tensor(np.asarray(v).astype(_NP_OF[dtype]), device=device)
+def _float_const(v, col_dtype: torch.dtype) -> float:
+    """A float comparison's constant as numpy rounds it: a weak Python
+    number to a float column's own type (``np.float32(v)``: an int through
+    float64, as numpy does), a numpy scalar to the result type."""
+    a = _np(col_dtype)
+    if _weak(v):
+        return float((a.type if a.kind == "f" else np.float64)(v))
+    return float(np.asarray(v).astype(np.result_type(a, v)))
+
+
+def cmp_leaf(op: str, col_dtype: torch.dtype, v):
+    """``(mode, op, const)`` of ``col <op> v`` in a ``compare_dtype`` mode: the
+    constant rounded as numpy rounds it, or an integer outside the mode's
+    range replaced by an equivalent one inside it (``uint8 < 300`` holds
+    for every row, as ``<= 2**63 - 1`` does)."""
+    mode = compare_dtype(col_dtype, v)
+    if mode in ("f32", "f64"):
+        return mode, op, _float_const(v, col_dtype)
+    lo, hi = _U64 if mode == "u64" else _I64
+    c = int(v)
+    if col_dtype == torch.bool and _weak(v) and not lo <= c <= hi:
+        # numpy meets a bool column with a Python int in int64, and raises
+        # for one past int64's range (an integer column compares exactly)
+        raise OverflowError("Python int too large to convert to C long")
+    if c > hi:
+        return (mode, "<=", hi) if op in ("<", "<=") else (mode, "<", lo)
+    if c < lo:
+        return (mode, ">=", lo) if op in (">", ">=") else (mode, "<", lo)
+    return mode, op, c
+
+
+def in_leaf(col_dtype: torch.dtype, vals: Tuple):
+    """``(mode, consts)`` of ``col in vals``: integers outside the mode's
+    range dropped (no row can equal them), floats rounded to the result
+    type."""
+    mode = compare_dtype(col_dtype, vals)
+    if mode in ("f32", "f64"):
+        arr = np.asarray(vals).reshape(-1)
+        rt = np.result_type(_np(col_dtype), arr.dtype)
+        return mode, arr.astype(rt).astype(np.float64).tolist()
+    lo, hi = _U64 if mode == "u64" else _I64
+    return mode, [int(v) for v in vals if lo <= int(v) <= hi]
+
+
+def mode_key(a: torch.Tensor, mode: str) -> torch.Tensor:
+    """The column in a mode's key space: int64 values (``u64``: with the
+    sign bit flipped, so that signed order is unsigned order) or floats."""
+    if mode == "i64":
+        return as_int64(a)
+    if mode == "u64":
+        return (a.view(torch.int64) if a.dtype == torch.uint64
+                else as_int64(a)) ^ -2 ** 63
+    f = as_float64(a)
+    return f.to(torch.float32) if mode == "f32" else f
+
+
+def mode_const(c, mode: str):
+    """A leaf's constant in its mode's key space."""
+    return c - 2 ** 63 if mode == "u64" else c
+
+
+def compare_mixed(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a <op> b`` for a uint64 column against a signed one, exactly: a
+    uint64 value at or past 2**63 exceeds every signed one, and the others
+    compare as int64."""
+    ka = a.view(torch.int64) if a.dtype == torch.uint64 else as_int64(a)
+    kb = b.view(torch.int64) if b.dtype == torch.uint64 else as_int64(b)
+    out = TORCH_OPS[op](ka, kb)
+    for side, k, a_greater in ((a, ka, True), (b, kb, False)):
+        if side.dtype == torch.uint64:
+            out = torch.where(k < 0, TORCH_OPS[op](
+                torch.tensor(int(a_greater)), torch.tensor(int(not a_greater))
+            ).to(out.device), out)
+    return out
 
 
 def compile_expr(expr: Expr) -> Callable[[Dict[str, torch.Tensor]],
@@ -120,30 +225,34 @@ def compile_expr(expr: Expr) -> Callable[[Dict[str, torch.Tensor]],
     """Lower the tree once into a torch closure over a column dict that
     returns the boolean row mask numpy's ``compile_expr`` returns."""
     if isinstance(expr, Cmp):
-        op = _TORCH_OPS[expr.op]
         name = expr.col.name
         if isinstance(expr.value, Col):
-            rname = expr.value.name
+            rname, op = expr.value.name, expr.op
 
             def colcol(cols):
                 a, b = cols[name], cols[rname]
-                dt = compare_dtype(a.dtype, b.dtype)
-                return op(a.to(dt), b.to(dt))
+                mode = compare_dtype(a.dtype, b.dtype)
+                if mode == "mixed":
+                    return compare_mixed(op, a, b)
+                return TORCH_OPS[op](mode_key(a, mode), mode_key(b, mode))
             return colcol
         v = expr.value
 
         def colconst(cols):
             a = cols[name]
-            dt = compare_dtype(a.dtype, v)
-            return op(a.to(dt), _scalar(v, dt, a.device))
+            mode, op, c = cmp_leaf(expr.op, a.dtype, v)
+            return TORCH_OPS[op](mode_key(a, mode), mode_const(c, mode))
         return colconst
     if isinstance(expr, In):
         name, vals = expr.col.name, expr.values
 
         def isin(cols):
             a = cols[name]
-            dt = compare_dtype(a.dtype, vals)
-            return torch.isin(a.to(dt), _scalar(vals, dt, a.device))
+            mode, consts = in_leaf(a.dtype, vals)
+            k = mode_key(a, mode)
+            return torch.isin(k, torch.tensor(
+                [mode_const(c, mode) for c in consts], dtype=k.dtype,
+                device=a.device))
         return isin
     if isinstance(expr, And):
         lf, rf = compile_expr(expr.left), compile_expr(expr.right)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import grouped_agg as gak
@@ -20,8 +21,11 @@ from repro_torch.kernels.program import program_for
 from repro_torch.kernels.ref import (hash_partition_ids, pack_bitmap,  # noqa: F401
                                      unpack_bitmap)
 from repro_torch.queryproc import expressions as ex
-from repro_torch.queryproc.table import ColumnTable
+from repro_torch.queryproc.table import (NP_OF, ColumnTable, as_float64,
+                                         as_int64, float_key, from_key,
+                                         gather, sort_key)
 
+UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
 # group codes above this many groups are compressed with a sort (unique)
 # instead of being used as dense ids directly
 DENSE_GROUP_LIMIT = 1 << 22
@@ -61,14 +65,15 @@ def group_ids(key_arrs: Sequence[torch.Tensor],
     array and of the batch executor's ``(partition, keys...)`` lexsort.
 
     Returns ``(ids (R,) int32, G, decode)``; ``decode(g)`` maps group ids
-    to ``(lead values, [key values...])``. Integer keys are coded by their
-    value range (no sort); float keys by a sorted ``unique``. Ids may name
-    groups no row has (the caller drops zero-count groups); when the code
-    space exceeds ``DENSE_GROUP_LIMIT`` it is compressed with one sort.
+    to ``(lead values, [key values...])``, each key in its stored dtype.
+    Bool and integer keys are coded by the range of their ``sort_key``
+    (no sort); float keys by a sorted ``unique``. Ids may name groups no
+    row has (the caller drops zero-count groups); when the code space
+    exceeds ``DENSE_GROUP_LIMIT`` it is compressed with one sort.
     Before a key would take the running code to 2**62, the code is
     compressed to the ranks of its distinct values (``unique`` keeps their
-    order), and a key whose own range is that wide is coded by ``unique``
-    as a float key is; ``decode`` undoes every step.
+    order), and a key whose own range is that wide (a uint64 or int64 one)
+    is coded by ``unique`` as a float key is; ``decode`` undoes every step.
     """
     n = key_arrs[0].shape[0] if key_arrs else lead.shape[0]
     dev = key_arrs[0].device if key_arrs else lead.device
@@ -79,14 +84,15 @@ def group_ids(key_arrs: Sequence[torch.Tensor],
     steps: List = []
     total = lead_size
     for a in key_arrs:
+        k = a if a.is_floating_point() else sort_key(a)
         if not a.is_floating_point():
-            lo, hi = (int(v) for v in torch.aminmax(a)) if n else (0, 0)
+            lo, hi = (int(v) for v in torch.aminmax(k)) if n else (0, 0)
             span, base = hi - lo + 1, lo
         if a.is_floating_point() or span >= 2 ** 62 // max(1, n):
-            u, inv = torch.unique(a, sorted=True, return_inverse=True)
+            u, inv = torch.unique(k, sorted=True, return_inverse=True)
             span, base = max(1, u.numel()), u
         else:
-            inv = a.to(torch.int64) - lo
+            inv = k - lo
         if total * span >= 2 ** 62:
             uniq, code = torch.unique(code, sorted=True, return_inverse=True)
             steps.append(uniq)
@@ -111,21 +117,48 @@ def group_ids(key_arrs: Sequence[torch.Tensor],
             span, base, dtype = step
             k = c % span
             c = c // span
-            keys.append(base[k] if isinstance(base, torch.Tensor)
-                        else (k + base).to(dtype))
+            k = base[k] if isinstance(base, torch.Tensor) else k + base
+            keys.append(k if dtype.is_floating_point else from_key(k, dtype))
         return c, keys[::-1]
 
     return code.to(torch.int32), G, decode
 
 
+def keyless_sum(arr: torch.Tensor) -> torch.Tensor:
+    """``np.sum``: a float column in its own dtype, an unsigned one into
+    uint64, bool and signed ones into int64 (both wrap modulo 2**64)."""
+    if arr.is_floating_point():
+        return arr.sum()
+    if arr.dtype == torch.uint64:
+        return arr.view(torch.int64).sum().view(torch.uint64)
+    s = as_int64(arr).sum()
+    return s.view(torch.uint64) if arr.dtype in UNSIGNED else s
+
+
+def reduce_min_max(v: torch.Tensor, fn: str, ids: Optional[torch.Tensor]
+                   = None, G: int = 1) -> torch.Tensor:
+    """The min or max of ``v`` (``fn``), per group of ``ids`` in [0, G)
+    (every group must have a row) or of all rows. Floats reduce as they
+    are (NaN wins, as in numpy's ``minimum``); bool and integer columns
+    through their ``sort_key``, which torch reduces on every device."""
+    k = v if v.is_floating_point() else sort_key(v)
+    red = "amin" if fn == "min" else "amax"
+    if ids is None:
+        out = k.amin() if fn == "min" else k.amax()
+    else:
+        out = torch.empty(G, dtype=k.dtype, device=k.device).scatter_reduce_(
+            0, ids.to(torch.int64), k, red, include_self=False)
+    return out if v.is_floating_point() else from_key(out, v.dtype)
+
+
 def _keyless(fn: str, arr: torch.Tensor) -> torch.Tensor:
     if fn == "sum":
-        return arr.sum()
+        return keyless_sum(arr)
     if fn == "count":
         return torch.tensor(arr.shape[0], dtype=torch.int64, device=arr.device)
     if fn == "mean":
-        return (arr if arr.is_floating_point() else arr.to(torch.float64)).mean()
-    return arr.amin() if fn == "min" else arr.amax()
+        return (arr if arr.is_floating_point() else as_float64(arr)).mean()
+    return reduce_min_max(arr, fn)
 
 
 def grouped_agg(t: ColumnTable, keys: Sequence[str],
@@ -143,8 +176,7 @@ def grouped_agg(t: ColumnTable, keys: Sequence[str],
     counts = None
     for name, (fn, col) in aggs.items():
         if fn in ("sum", "mean"):
-            sums[name], counts = gak.grouped_agg(
-                ids, t.cols[col].to(torch.float64), G)
+            sums[name], counts = gak.grouped_agg(ids, t.cols[col], G)
     if counts is None:
         _, counts = gak.grouped_agg(ids, None, G)
     nz = torch.nonzero(counts).flatten()  # the groups some row has
@@ -162,51 +194,98 @@ def grouped_agg(t: ColumnTable, keys: Sequence[str],
         elif fn == "mean":
             out[name] = sums[name][nz] / torch.clamp(counts, min=1)
         else:
-            v = t.cols[col]
-            red = torch.empty(G, dtype=v.dtype, device=v.device).scatter_reduce_(
-                0, ids.to(torch.int64), v, "amin" if fn == "min" else "amax",
-                include_self=False)
-            out[name] = red[nz]
+            out[name] = gather(reduce_min_max(t.cols[col], fn, ids, G), nz)
     return ColumnTable(out)
+
+
+def rank_key(v: torch.Tensor, ascending: bool) -> torch.Tensor:
+    """int64 keys whose ascending order is the reference's ``top_k`` order:
+    ``v``, or numpy's ``-v`` for descending (which wraps an unsigned
+    column, and keeps NaN last either way)."""
+    if ascending:
+        return sort_key(v)
+    if v.dtype == torch.bool:
+        raise TypeError("numpy has no negative of a bool column")
+    if v.is_floating_point():
+        return sort_key(-v)
+    if v.dtype == torch.uint64:
+        return (-v.view(torch.int64)) ^ -2 ** 63
+    bits = v.element_size() * 8
+    neg = (-as_int64(v)) & ((1 << bits) - 1) if bits < 64 else -v
+    if v.dtype in UNSIGNED or bits == 64:
+        return neg
+    return torch.where(neg >= 1 << (bits - 1), neg - (1 << bits), neg)
 
 
 def top_k(t: ColumnTable, col: str, k: int, ascending: bool = False
           ) -> ColumnTable:
-    """The k best rows by ``col``, best first; ties keep row order."""
-    v = t.cols[col]
-    k = min(k, len(v))
-    order = torch.sort(v, descending=not ascending, stable=True).indices[:k]
-    return t.take(order)
+    """The k best rows by ``col``, best first, NaN last; ties keep row
+    order."""
+    key = rank_key(t.cols[col], ascending)
+    k = min(k, len(key))
+    return t.take(torch.sort(key, stable=True).indices[:k])
 
 
 def sort_table(t: ColumnTable, cols: Sequence[str], ascending: bool = True
                ) -> ColumnTable:
     """Lexicographic sort by ``cols`` (first column primary), as
-    ``np.lexsort``: one stable sort per column, last column first."""
+    ``np.lexsort``: one stable sort per column, last column first, NaN
+    last."""
     order = torch.arange(len(t), device=t.device)
     for c in reversed(list(cols)):
-        order = order[torch.sort(t.cols[c][order], stable=True).indices]
+        order = order[torch.sort(sort_key(t.cols[c])[order],
+                                 stable=True).indices]
     return t.take(order if ascending else order.flip(0))
+
+
+def key_in(v: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
+    """``sort_key`` of ``v`` cast to a common numpy dtype: keys of two
+    columns in the same dtype compare as numpy compares their values."""
+    if dtype.kind == "f":
+        return float_key(as_float64(v))
+    if dtype == np.uint64:
+        return (v.view(torch.int64) if v.dtype == torch.uint64
+                else as_int64(v)) ^ -2 ** 63
+    return as_int64(v)
 
 
 def hash_join(left: ColumnTable, right: ColumnTable, lkey: str, rkey: str
               ) -> ColumnTable:
-    """Inner equi-join: stable argsort of the right keys + searchsorted,
-    left rows in order, each with its matches in right-row order."""
+    """Inner equi-join as numpy's: a stable argsort of the right keys, then
+    ``searchsorted`` in the two keys' common dtype (int32 against uint64
+    meets in float64), NaN matching NaN; left rows in order, each with its
+    matches in right-key order."""
     lv, rv = left.cols[lkey], right.cols[rkey]
-    dt = torch.promote_types(lv.dtype, rv.dtype)
-    rv_sorted, r_order = torch.sort(rv.to(dt), stable=True)
-    lv = lv.to(dt)
-    lo = torch.searchsorted(rv_sorted, lv)
-    counts = torch.searchsorted(rv_sorted, lv, right=True) - lo
+    common = np.result_type(NP_OF[lv.dtype], NP_OF[rv.dtype])
+    r_order = torch.sort(sort_key(rv), stable=True).indices
+    rv_sorted = key_in(gather(rv, r_order), common)
+    lk = key_in(lv, common)
+    lo = torch.searchsorted(rv_sorted, lk)
+    counts = torch.searchsorted(rv_sorted, lk, right=True) - lo
     l_idx = torch.repeat_interleave(
         torch.arange(len(lv), device=lv.device), counts)
     offs = torch.cumsum(counts, 0) - counts
     r_idx = r_order[torch.arange(len(l_idx), device=lv.device)
                     - torch.repeat_interleave(offs - lo, counts)]
-    out = {k: v[l_idx] for k, v in left.cols.items()}
+    out = {k: gather(v, l_idx) for k, v in left.cols.items()}
     for k, v in right.cols.items():
         if k != rkey or lkey != rkey:
-            out[k if k not in out else f"r_{k}"] = v[r_idx]
+            out[k if k not in out else f"r_{k}"] = gather(v, r_idx)
     return ColumnTable(out)
 
+
+def isin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``np.isin(a, b)`` of two columns: exact membership for two integer
+    columns (whatever their signedness), equality in the common dtype
+    otherwise."""
+    na, nb = np.dtype(NP_OF[a.dtype]), np.dtype(NP_OF[b.dtype])
+    if na.kind in "biu" and nb.kind in "biu" and np.uint64 in (na, nb) \
+            and "i" in (na.kind, nb.kind):
+        # a signed value below 0 equals no uint64 one
+        keep_a = (a >= 0) if na.kind == "i" else None
+        b = gather(b, b >= 0) if nb.kind == "i" else b
+        hit = torch.isin(key_in(a, np.dtype(np.uint64)),
+                         key_in(b, np.dtype(np.uint64)))
+        return hit & keep_a if keep_a is not None else hit
+    common = np.result_type(na, nb)
+    return torch.isin(key_in(a, common), key_in(b, common))

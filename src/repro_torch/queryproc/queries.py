@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.plan import PushPlan
 from repro_torch.queryproc import operators as ops
 from repro_torch.queryproc.expressions import Col
-from repro_torch.queryproc.table import ColumnTable
+from repro_torch.queryproc.table import ColumnTable, gather
 from repro_torch.queryproc.tpch import date
 
 C = Col  # terse alias
@@ -54,8 +54,7 @@ def _scalar_table(name: str, value: torch.Tensor) -> ColumnTable:
 
 
 def _isin(v: torch.Tensor, values) -> torch.Tensor:
-    return torch.isin(v, torch.as_tensor(values, dtype=v.dtype,
-                                         device=v.device))
+    return ops.isin(v, torch.as_tensor(values, device=v.device))
 
 
 def q1() -> Query:
@@ -114,9 +113,9 @@ def q4() -> Query:
 
     def compute(t):
         lt = t["lineitem"]
-        lk = torch.unique(lt.cols["l_orderkey"][lt.cols["_late"] == 1])
+        lk = gather(lt.cols["l_orderkey"], lt.cols["_late"] == 1)
         o = t["orders"]
-        mask = torch.isin(o.cols["o_orderkey"], lk)
+        mask = ops.isin(o.cols["o_orderkey"], lk)
         return ops.grouped_agg(o.filter(mask), ["o_orderpriority"],
                                {"cnt": ("count", "")})
 
@@ -220,7 +219,8 @@ def q8() -> Query:
         j = ColumnTable({**j.cols, "o_year": yr, "nat_volume": nat})
         g = ops.grouped_agg(j, ["o_year"], {"nat": ("sum", "nat_volume"),
                                             "total": ("sum", "volume")})
-        share = g.cols["nat"] / torch.clamp(g.cols["total"], min=1e-9)
+        share = g.cols["nat"] / torch.clamp(
+            g.cols["total"].to(torch.float64), min=1e-9)
         return ColumnTable({"o_year": g.cols["o_year"], "mkt_share": share})
 
     return Query("Q8", {"orders": od, "lineitem": li, "part": pa,
@@ -382,8 +382,8 @@ def q22() -> Query:
         c = c.filter(_isin(c.cols["c_nationkey"], (13, 17, 19, 21, 23)))
         avg = c.cols["c_acctbal"].mean() if len(c) else 0.0
         rich = c.filter(c.cols["c_acctbal"] > avg)
-        has_order = torch.isin(rich.cols["c_custkey"],
-                               torch.unique(t["orders"].cols["o_custkey"]))
+        has_order = ops.isin(rich.cols["c_custkey"],
+                             t["orders"].cols["o_custkey"])
         g = ops.grouped_agg(rich.filter(~has_order), ["c_nationkey"],
                             {"numcust": ("count", ""),
                              "totacctbal": ("sum", "c_acctbal")})

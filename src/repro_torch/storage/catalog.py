@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.queryproc.table import ColumnTable
+from repro_torch.queryproc.table import ColumnTable, sort_key
 
 
 @dataclasses.dataclass
@@ -68,9 +68,9 @@ class Catalog:
             data = ColumnTable.from_numpy(data, self.device)
         n = len(data)
         if cluster_key is not None:
-            key, order = torch.sort(data.cols[cluster_key], stable=True)
-            data = ColumnTable({k: key if k == cluster_key else v[order]
-                                for k, v in data.cols.items()})
+            key, order = torch.sort(sort_key(data.cols[cluster_key]),
+                                    stable=True)
+            data = data.take(order)
             self.clustered[name] = cluster_key
             bounds = [0]
             while bounds[-1] < n:

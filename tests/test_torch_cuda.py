@@ -1541,3 +1541,153 @@ def test_collectives_on_one_nccl_rank(nccl_mesh):
     err = 0.1 * torch.randn((8, 64), generator=g, device="cuda")
     approx, new_err = coll.compressed_psum(grad, err, nccl_mesh, "data")
     assert torch.equal(approx, grad + err) and not new_err.any()
+
+
+# ------------------------------------------- every column width and dtype
+DOMAIN = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.uint16,
+          torch.int32, torch.uint32, torch.int64, torch.uint64,
+          torch.float16, torch.float32, torch.float64)
+KEY_DOMAIN = DOMAIN[:9]  # a bool or integer key
+WIDTH_ROWS = (1, 33, 2049, 100_003)
+
+
+def _domain_values(dtype, R, seed, small=False):
+    """Numpy values of a torch dtype: the range's edges and random ones
+    (floats with NaN, -0.0 and inf unless ``small``: values to sum)."""
+    rng = np.random.default_rng(seed)
+    np_t = torch.empty(0, dtype=dtype).numpy().dtype
+    if np_t.kind == "b":
+        return rng.integers(0, 2, R).astype(bool)
+    if np_t.kind in "iu":
+        info = np.iinfo(np_t)
+        lo, hi = (max(info.min, -2 ** 40), min(info.max, 2 ** 40)) if small \
+            else (info.min, info.max)
+        v = rng.integers(lo, hi, R, dtype=np_t, endpoint=True)
+        if not small:
+            v[:4] = np.asarray([info.min, info.max, 0, 1], np_t)[:R]
+        return v
+    v = (rng.standard_normal(R) * 100).astype(np_t)
+    if not small:
+        v[:4] = np.asarray([np.nan, -0.0, np.inf, 0.5], np_t)[:R]
+    return v
+
+
+def _domain_predicates(dtype):
+    """Leaves over a column ``v`` of ``dtype`` in every mode a leaf of it
+    can take: an integer or float constant (out of range too), an inline
+    and a pooled ``In``, a column-column compare with ``w`` (the same
+    dtype) and, for uint64, with a signed column ``s``."""
+    C = Col
+    v = C("v")
+    preds = [v > 3, v.eq(1), v <= 2.5, v < 300, v >= -1,
+             v.isin((0, 1, 7, -1, 300)), v.isin(tuple(range(-20, 40, 3))),
+             C("v") < C("w"), (v.eq(0) | (v > 100)) & (C("w") >= C("v"))]
+    if dtype == torch.uint64:
+        preds += [C("v") < C("s"), C("s").eq(C("v")), v > 2 ** 63]
+    if dtype.is_floating_point:
+        preds += [v.eq(0.1), v.isin((0.5, float("nan"), -0.0))]
+    return preds
+
+
+@pytest.mark.parametrize("offset", (0, 3))
+@pytest.mark.parametrize("R", WIDTH_ROWS)
+@pytest.mark.parametrize("dtype", DOMAIN, ids=[str(d)[6:] for d in DOMAIN])
+def test_the_six_kernels_take_every_width(cuda, dtype, R, offset):
+    """Columns of 1, 2, 4 and 8 bytes, of every dtype, at their stored
+    width (views off a 16-byte boundary at ``offset`` 3): the program
+    kernels' loads and modes, the aggregates' value reads, the 1- and
+    2-byte gathers and the keys' hash, each against its plain version.
+    Bitmaps, ids, counts and gathered rows bitwise; sums to ``SUM_RTOL``."""
+    host = {"v": _domain_values(dtype, R, R),
+            "w": _domain_values(dtype, R, R + 1),
+            "s": _domain_values(torch.int64, R, R + 2),
+            "x": _domain_values(dtype, R, R + 3, small=True)}
+    # odd row offsets: no width puts an odd row on a 16-byte boundary
+    cols = {k: _view_at(a, 2 * ((offset + i) % 3) + 1 if offset else 0, cuda)
+            for i, (k, a) in enumerate(host.items())}
+    if offset:
+        assert all(c.data_ptr() % 16 for c in cols.values())
+    ids = torch.from_numpy(np.random.default_rng(R).integers(
+        0, 7, R, np.int32)).to(cuda)
+    for expr in _domain_predicates(dtype):
+        prog = program_for(expr, cols)
+        pcols = [cols[c] for c in prog.columns]
+        words = pb.predicate_bitmap(prog, pcols)
+        assert torch.equal(words, ref.predicate_bitmap(prog, pcols)), expr
+        sums, counts = fsa.fused_scan_agg(prog, pcols, ids,
+                                          [cols["x"], cols["x"]], 7)
+        psums, pcounts = ref.fused_scan_agg(prog, pcols, ids,
+                                            [cols["x"], cols["x"]], 7)
+        assert torch.equal(counts, pcounts), expr
+        torch.testing.assert_close(sums, psums, rtol=SUM_RTOL, atol=0.0)
+        if dtype in KEY_DOMAIN:
+            out = fss.fused_scan_shuffle(prog, pcols, cols["v"], 5)
+            plain = ref.fused_scan_shuffle(prog, pcols, cols["v"], 5)
+            for a, b in zip(out, plain):
+                assert torch.equal(a, b), expr
+    s, c = ga.grouped_agg(ids, cols["x"], 7)
+    ps, pc = ref.grouped_agg(ids, cols["x"], 7)
+    assert torch.equal(c, pc)
+    torch.testing.assert_close(s, ps, rtol=SUM_RTOL, atol=0.0)
+    for col in (cols["v"], cols["w"]):
+        masked, count = ba.bitmap_apply(words, col)
+        pmasked, pcount = ref.bitmap_apply(words, col)
+        assert masked.dtype == col.dtype and masked.shape == (R,)
+        assert torch.equal(masked.view(torch.uint8), pmasked.view(torch.uint8))
+        assert int(count) == int(pcount)
+    if dtype in KEY_DOMAIN:
+        for P in (1, 4, 7, 8192):
+            pids, hist = hp.hash_partition(cols["v"], P)
+            ppids, phist = ref.hash_partition(cols["v"], P)
+            assert torch.equal(pids, ppids) and torch.equal(hist, phist)
+
+
+def test_segments_of_mixed_widths_in_one_bitmap_apply(cuda):
+    """One launch over segments of 1-, 2-, 4- and 8-byte columns, each a
+    view at its own offset: every output placed beside its column."""
+    rng = np.random.default_rng(5)
+    words, cols, part_of = [], [], []
+    for i, dtype in enumerate(DOMAIN * 2):
+        R = int(rng.integers(0, 9000))
+        w = ref.pack_bitmap(torch.from_numpy(rng.random(R) < 0.4)).to(cuda)
+        words.append(w)
+        cols.append(_view_at(_domain_values(dtype, R, i), i % 5, cuda))
+        part_of.append(i // 3)
+    outs, counts = ba.bitmap_apply_segments(words, cols, part_of)
+    pouts, pcounts = ref.bitmap_apply_segments(words, cols, part_of)
+    assert torch.equal(counts, pcounts)
+    for o, po, c in zip(outs, pouts, cols):
+        assert o.dtype == c.dtype and o.shape == c.shape
+        assert not o.numel() or (o.data_ptr() - c.data_ptr()) % 16 == 0
+        assert torch.equal(o.view(torch.uint8), po.view(torch.uint8))
+
+
+def test_narrow_catalog_on_the_card_matches_the_cpu(cuda):
+    """TPC-H at its narrowest widths (uint8 codes, int16 dates, uint32
+    keys) through every query, eager and adaptive, on the card as on the
+    CPU, with the narrow dtypes kept in the results."""
+    U8 = {"r_regionkey", "n_nationkey", "n_regionkey", "s_nationkey",
+          "c_nationkey", "c_mktsegment", "p_brand", "p_type", "p_size",
+          "p_container", "o_orderpriority", "o_shippriority",
+          "l_returnflag", "l_linestatus", "l_shipinstruct", "l_shipmode"}
+    I16 = {"o_orderdate", "l_shipdate", "l_commitdate", "l_receiptdate"}
+    arrays = {t: {c: v if v.dtype == np.float64 else v.astype(
+        np.uint8 if c in U8 else np.int16 if c in I16 else
+        np.uint16 if c == "ps_availqty" else np.uint32)
+        for c, v in cols.items()}
+        for t, cols in tpch.generate_tables(1.0, 3).items()}
+    from repro_torch.storage.catalog import catalog_from_arrays
+    gpu, cpu = (catalog_from_arrays(arrays, 2, 2500, device=d)
+                for d in (cuda, "cpu"))
+    for qid in queries.QUERY_IDS:
+        for mode in ("eager", "adaptive"):
+            kernels.reset_launches()
+            g = run_query(queries.build_query(qid), gpu,
+                          EngineConfig(mode=mode, device=cuda))
+            assert sum(kernels.launches().values()) > 0
+            c = run_query(queries.build_query(qid), cpu,
+                          EngineConfig(mode=mode, device="cpu"))
+            assert [v.dtype for v in g.result.cols.values()] == \
+                [v.dtype for v in c.result.cols.values()]
+            assert results_equal(g.result, c.result), (qid, mode)
+            assert g.real_net_bytes == c.real_net_bytes
