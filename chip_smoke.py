@@ -56,7 +56,7 @@ GPU is present. Phases:
 4. Tensor: the residual's tensor backend (``EngineConfig.residual=
    "tensor"``) on the same catalog. Each query compiled once, one
    observe pass through ``run_query``, the interpreter's and the tensor
-   backend's residual times on the eager merged tables (medians of 5),
+   backend's residual times on the eager merged tables (medians of 3),
    stages, each aggregate's ``code``/``lex`` and each join's
    ``lut``/``sorted`` lowering and the ``grouped_agg`` launches and
    regimes, each of the stages' ``grouped_agg`` calls in the cold run held
@@ -64,6 +64,12 @@ GPU is present. Phases:
    or count calls it; ``code`` and ``lex`` aggregates both held); the
    four configs warm (no fallback, no program missed), each
    agreeing with the engine phase's interpreter run bitwise or in rows;
+   then the same over the narrow phase's catalog (kept until here): each
+   query compiled once, observed, cold (its ``grouped_agg`` calls held)
+   and warm at eager 1.0, the tensor and interpreter ms (medians of 3)
+   beside the wide ones, the warm result held to the narrow interpreter
+   run (bitwise or in rows), to the wide tensor result (in rows, keys in
+   their narrow dtypes) and by lowerings equal to the wide catalog's;
    the calibrated crossover, ``residual="auto"`` runs of Q1 and Q18, and
    the stream phase's stream with the tensor backend; no
    ``residual.errors``.
@@ -1309,7 +1315,7 @@ def narrow_kernels(ncat, records, timer):
 
 
 def narrow_phase(cat, records, timer, sync, results=None,
-                 card: str = "no card"):
+                 card: str = "no card", keep=None):
     """TPC-H at its narrowest widths (``NARROW``) on the card: the catalog
     re-stored by casting each column there, every query eager and adaptive
     at power 1.0 through ``compile_and_run`` held to the wide catalog's
@@ -1320,7 +1326,10 @@ def narrow_phase(cat, records, timer, sync, results=None,
     narrow dtypes, and both catalogs' real bytes; a Fig-3 apply and two
     shuffle plans over the narrow partitions; then each kernel on narrow
     columns against the wide launch's ms in ``records``
-    (``narrow_kernels``). Returns the launch counts of the driven runs."""
+    (``narrow_kernels``). With ``keep`` (a dict), the narrow catalog stays
+    in ``keep["catalog"]`` and each query's eager result in
+    ``keep["interp"]`` for the tensor phase's narrow pass. Returns the
+    launch counts of the driven runs."""
     from repro_torch.compiler import QUERY_IDS
     from repro_torch.core import bitmap
     from repro_torch.core.cost import StorageResources
@@ -1373,6 +1382,8 @@ def narrow_phase(cat, records, timer, sync, results=None,
                 wide[-1].sim.decisions() else "differs"
             bytes_by["narrow"] += run.real_net_bytes
             bytes_by["wide"] += wide[-1].real_net_bytes
+            if keep is not None and mode == "eager":
+                keep.setdefault("interp", {})[qid] = run.result
             print(f"narrow: {qid} mode={mode} wall_s={wall:.4f} "
                   f"real_net_bytes narrow={run.real_net_bytes} "
                   f"wide={wide[-1].real_net_bytes} split={split} "
@@ -1426,11 +1437,14 @@ def narrow_phase(cat, records, timer, sync, results=None,
               f"max_abs_err={r['max_abs_err']:.3g}; {card}")
     print(f"narrow: kernels held and timed in "
           f"{time.perf_counter() - t0:.2f} s")
+    if keep is not None:
+        keep["catalog"] = ncat
     return launches
 
 
 # ------------------------------------------------------------ tensor phase
-def tensor_phase(cat, sync, interp, card: str = "no card", repeats: int = 5):
+def tensor_phase(cat, sync, interp, narrow, card: str = "no card",
+                 repeats: int = 3):
     """The residual's tensor backend (``EngineConfig.residual="tensor"``).
     Each query is compiled once (``compile_and_run`` would compile, and so
     observe, at every call): one observe pass through ``run_query``, then
@@ -1447,7 +1461,9 @@ def tensor_phase(cat, sync, interp, card: str = "no card", repeats: int = 5):
     run of Q1 and of Q18, and the stream phase's 16-entry stream in
     adaptive 1.0 with the tensor backend, each result agreeing with the
     engine phase's adaptive 1.0 run; ``residual.errors`` must stay 0.
-    ``card`` labels the lines. Returns the launch counts of the driven
+    Between them, the same queries over the narrow catalog (``narrow``:
+    the narrow phase's ``keep``; ``narrow_tensor_pass``). ``card`` labels
+    the lines. Returns the launch counts of the driven
     runs."""
     from repro_torch import kernels
     from repro_torch.compiler import QUERY_IDS, compile_query, tensorize
@@ -1486,7 +1502,7 @@ def tensor_phase(cat, sync, interp, card: str = "no card", repeats: int = 5):
     prev = metrics.get_metrics()
     metrics.set_metrics(metrics.Metrics())
     try:
-        hows, kinds = {}, set()
+        hows, kinds, wide = {}, set(), {}
         for qid in QUERY_IDS:
             q = compile_query(qid)
             run = drive(run_query, q, cat, config("eager"))
@@ -1536,12 +1552,16 @@ def tensor_phase(cat, sync, interp, card: str = "no card", repeats: int = 5):
                       f"tensor: {qid} {mode} {power} {jit}")
                 tally(hows, agrees(run.result, interp[(qid, mode, power)],
                                    f"{qid} {mode} {power}"))
+                if (mode, power) == ("eager", 1.0):
+                    wide[qid] = (run.result, (aggs, joins), t_int, t_ten)
         check(kinds >= {"code", "lex"},
               f"tensor: grouped_agg held to its plain version under the "
               f"{sorted(kinds)} aggregates only, not both code and lex")
         print(f"tensor: {len(QUERY_IDS)} queries x {len(CONFIGS)} configs "
               f"warm (no program missed), agree with the interpreter "
               f"{hows} [{card}]")
+        narrow_tensor_pass(narrow["catalog"], narrow["interp"], wide, drive,
+                           sync, median_s, card)
         t0 = time.perf_counter()
         th = tensorize.calibrate_residual_threshold(device=cat.device)
         print(f"tensor: calibrate_residual_threshold() = {th} merged rows "
@@ -1573,6 +1593,85 @@ def tensor_phase(cat, sync, interp, card: str = "no card", repeats: int = 5):
     finally:
         metrics.set_metrics(prev)
     return launches
+
+
+def narrow_tensor_pass(ncat, ninterp, wide, drive, sync, median_s,
+                       card: str = "no card"):
+    """The tensor backend over TPC-H stored narrow (``NARROW``): each query
+    compiled once, observed through ``run_query`` (eager, power 1.0), a
+    cold run on the narrow eager merged tables with each of its stages'
+    ``grouped_agg`` calls held to the plain version
+    (``tensor_agg_held``), the interpreter's and the tensor backend's
+    residual ms there (``median_s``, as the wide ones), then a warm
+    ``run_query``
+    (no fallback, no miss) held three ways: to the narrow phase's
+    interpreter run (``ninterp``) bitwise or in rows, to the wide
+    catalog's warm tensor result (``wide``: the tensor phase's) in rows
+    with the keys in their narrow dtypes, and by its lowerings, which
+    must be the wide catalog's (the same values give the same codes,
+    LUTs and sorted probes). ``drive`` counts the observe and warm runs'
+    launches; ``wide`` holds ``(result, lowerings, interpreter s, tensor
+    s)`` for each query."""
+    from repro_torch.compiler import QUERY_IDS, compile_query, tensorize
+    from repro_torch.core.arbitrator import PUSHDOWN
+    from repro_torch.core.cost import StorageResources
+    from repro_torch.core.engine import EngineConfig, plan_requests, run_query
+    from repro_torch.core.runtime import execute_split, run_residual
+
+    cfg = EngineConfig(res=StorageResources(storage_power=1.0),
+                       mode="eager", device=ncat.device, residual="tensor")
+    stored = {c: v.dtype for parts in ncat.tables.values()
+              for c, v in parts[0].data.cols.items()}
+    hows = {}
+    for qid in QUERY_IDS:
+        q = compile_query(qid)
+        run = drive(run_query, q, ncat, cfg)
+        check(run.residual_backend == "tensor"
+              and run.residual_jit["observed"],
+              f"tensor narrow: {qid} observe pass {run.residual_jit}")
+        reqs = plan_requests(q, ncat)
+        merged = execute_split(
+            reqs, {r.req_id: PUSHDOWN for r in reqs}).merged
+        with tensor_agg_held([]) as held:
+            _, cold = run_residual(q, merged, "tensor")
+            sync()
+        check(not cold.fell_back and cold.jit_misses >= 1,
+              f"tensor narrow: {qid} cold run {cold}")
+        check(not keyed_sums(q.residual) or len(held) > 0,
+              f"tensor narrow: {qid}'s stages never called grouped_agg")
+        t_int = median_s(lambda: run_residual(q, merged, "interpreter"))
+        t_ten = median_s(lambda: run_residual(q, merged, "tensor"))
+        del merged
+        run = drive(run_query, q, ncat, cfg)
+        jit = run.residual_jit
+        check(run.residual_backend == "tensor" and not jit["fell_back"]
+              and not jit["observed"] and jit["misses"] == 0
+              and jit["hits"] >= 1, f"tensor narrow: {qid} warm {jit}")
+        how = agree(ninterp[qid], run.result)
+        check(how != "", f"tensor narrow: {qid} differs from the narrow "
+                         f"catalog's interpreter run")
+        wres, wlow, w_int, w_ten = wide[qid]
+        how_w = agree(wres, widened(run.result, wres))
+        check(how_w != "", f"tensor narrow: {qid} differs from the wide "
+                           f"catalog's tensor result")
+        keys = {c: str(v.dtype)[6:] for c, v in run.result.cols.items()
+                if c in stored}
+        check(all(run.result.cols[c].dtype == stored[c] for c in keys),
+              f"tensor narrow: {qid} a key lost its narrow dtype")
+        low = tensorize.lowerings(q.residual)
+        check(low == wlow, f"tensor narrow: {qid} lowerings {low} against "
+                           f"the wide catalog's {wlow}")
+        hows[how] = hows.get(how, 0) + 1
+        print(f"tensor narrow: {qid} tensor_ms={1e3 * t_ten:.4f} "
+              f"interpreter_ms={1e3 * t_int:.4f} (wide tensor_ms="
+              f"{1e3 * w_ten:.4f} interpreter_ms={1e3 * w_int:.4f}; "
+              f"medians as above) aggregates={[a[0] for a in low[0]]} "
+              f"joins={[j[0] for j in low[1]]} (the wide catalog's) "
+              f"grouped_agg held (R, G, dropped, max_abs_err)={held} "
+              f"agrees: narrow interpreter={how} wide tensor={how_w} "
+              f"keys={keys} [{card}]")
+    print(f"tensor narrow: {len(QUERY_IDS)} queries warm, agree with the "
+          f"narrow interpreter {hows} [{card}]")
 
 
 # ---------------------------------------------------------- compiler phase
@@ -4206,16 +4305,18 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    kept = {}  # the narrow catalog and its results, for the tensor phase
     narrow = narrow_phase(cat, records, cuda_ms, torch.cuda.synchronize,
-                          interp, smi[0])
+                          interp, smi[0], kept)
     torch.cuda.empty_cache()
     print(f"narrow phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tensor = tensor_phase(cat, torch.cuda.synchronize, interp, smi[0])
-    del interp
+    tensor = tensor_phase(cat, torch.cuda.synchronize, interp, kept, smi[0])
+    del interp, kept
+    torch.cuda.empty_cache()
     print(f"tensor phase: {time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card")
 

@@ -72,6 +72,12 @@ and replays the interpreter (``residual.errors``), except a failure of
 the device itself (a kernel build or launch error, ``KernelError``; a
 CUDA out-of-memory or runtime error), which propagates.
 
+Columns keep their stored dtype from the merged tables to the result.
+Torch's CUDA build cannot index, compare, sort or reduce a uint16/32/64
+tensor, so the stage programs move such a column with ``table.gather``,
+order and reduce it through its ``sort_key`` and compute on it through
+``as_int64``/``as_float64``; key ranges come from the ``sort_key`` too.
+
 ``core.runtime.run_residual`` dispatches between the two backends
 (``EngineConfig.residual``); ``"auto"`` uses a calibrated merged-row
 crossover (``calibrate_residual_threshold``), overridable by
@@ -96,7 +102,10 @@ from repro_torch.kernels._launch import KernelError
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import get_metrics
 from repro_torch.queryproc import expressions as ex
-from repro_torch.queryproc.table import ColumnTable
+from repro_torch.queryproc.operators import keyless_sum
+from repro_torch.queryproc.table import (ColumnTable, as_float64, as_int64,
+                                         from_key, gather, signed_view,
+                                         sort_key)
 
 _MIN_BUCKET = 16
 _LUT_CAP = 1 << 23       # max dense key-LUT domain
@@ -308,6 +317,28 @@ def _integral(t: torch.Tensor) -> bool:
     return not (t.is_floating_point() or t.is_complex())
 
 
+def _key_range(c: torch.Tensor) -> Tuple[int, int]:
+    """(min, max) of a bool or integer column's values as Python ints
+    (a uint64 one up to 2**64 - 1), reduced over its ``sort_key``."""
+    lo, hi = (int(v) for v in torch.aminmax(sort_key(c)))
+    shift = 2 ** 63 if c.dtype == torch.uint64 else 0
+    return lo + shift, hi + shift
+
+
+def _as_i64(c: torch.Tensor) -> torch.Tensor:
+    """The reference's ``astype(int64)`` of a bool or integer column: a
+    uint64 value from 2**63 on wraps, as there."""
+    return c.view(torch.int64) if c.dtype == torch.uint64 else as_int64(c)
+
+
+def _check_i64(lo: int, what: str) -> None:
+    """A key domain from 2**63 on has no int64 offsets: the reference's
+    codes and LUTs overflow there (an error, which replays the
+    interpreter and keeps the residual on it), and so do these."""
+    if lo >= 2 ** 63:
+        raise OverflowError(f"{what} starts at {lo}, past int64")
+
+
 def _observe(art: _Artifact, memo: Dict[int, ColumnTable]) -> None:
     """Specialize from the interpreter's memo: per keyed Aggregate, the
     per-key (min, dim) bounds of its input (unioned with earlier
@@ -334,8 +365,7 @@ def _observe(art: _Artifact, memo: Dict[int, ColumnTable]) -> None:
             mins = [0] * len(cols)
             maxs = [0] * len(cols)
         else:
-            mins = [int(c.min()) for c in cols]
-            maxs = [int(c.max()) for c in cols]
+            mins, maxs = (list(b) for b in zip(*map(_key_range, cols)))
         if spec is not None:
             mins = [min(a, b) for a, b in zip(mins, spec[1])]
             maxs = [max(mx, om + od - 1)
@@ -353,8 +383,8 @@ def _observe(art: _Artifact, memo: Dict[int, ColumnTable]) -> None:
         if rname is not None and rt is not None and node.rkey in rt.cols:
             rk = rt.cols[node.rkey]
             if _integral(rk):
-                dom = (1 if len(rk) == 0
-                       else int(rk.max()) - int(rk.min()) + 1)
+                lo, hi = _key_range(rk) if len(rk) else (0, 0)
+                dom = hi - lo + 1
                 if dom <= _LUT_CAP:
                     mode = ("lut", f"__lut{j}", rname)
         join[id(node)] = mode
@@ -487,43 +517,62 @@ def _lower_node(node: ir.Node, ctx: Dict) -> _MT:
 
 
 def _minmax_sentinel(dtype: torch.dtype, want_max: bool):
+    """The extreme of ``dtype`` a reduction starts from: the identity of
+    max (``want_max``) or of min, in ``_order_key``'s space."""
     if dtype.is_floating_point:
         return float("inf") if want_max else float("-inf")
     if dtype == torch.bool:
-        return want_max
+        return int(want_max)
     info = torch.iinfo(dtype)
-    return info.max if want_max else info.min
+    return _key_of(info.max if want_max else info.min, dtype)
+
+
+def _key_of(value: int, dtype: torch.dtype) -> int:
+    """``sort_key`` of one bool or integer value of ``dtype``."""
+    return value - 2 ** 63 if dtype == torch.uint64 else value
+
+
+def _order_key(v: torch.Tensor) -> torch.Tensor:
+    """What the stage programs sort, compare and reduce for ``v``: a float
+    column itself, any other its int64 ``sort_key`` (the same order and
+    equalities; torch reduces int64 on every device)."""
+    return v if v.is_floating_point() else sort_key(v)
+
+
+def _from_order_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return k if dtype.is_floating_point else from_key(k, dtype)
+
+
+def _zeroed(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``v`` with its invalid rows' bits zeroed, in ``v``'s dtype."""
+    s = signed_view(v)
+    return torch.where(valid, s, s.new_zeros(())).view(v.dtype)
 
 
 def _segment_minmax(vals: torch.Tensor, gid: torch.Tensor, n_seg: int,
                     fn: str) -> torch.Tensor:
-    """Per-segment min or max of ``vals`` over ``gid`` in [0, n_seg);
-    a segment no row reaches holds the reduction's identity, as
-    ``jax.ops.segment_min``/``segment_max`` leave it."""
+    """Per-segment min or max of ``vals`` over ``gid`` in [0, n_seg), in
+    ``vals``' dtype; a segment no row reaches holds the reduction's
+    identity, as ``jax.ops.segment_min``/``segment_max`` leave it."""
+    k = _order_key(vals)
     ident = _minmax_sentinel(vals.dtype, want_max=(fn == "min"))
-    out = torch.full((n_seg,), ident, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, gid, vals,
-                               "amin" if fn == "min" else "amax")
-
-
-def _agg_values(vals: torch.Tensor) -> torch.Tensor:
-    """A sum's value column as ``grouped_agg`` takes it: f32 or f64 as
-    they are (the kernel adds in f64), anything else as f64."""
-    if vals.dtype in (torch.float32, torch.float64):
-        return vals.contiguous()
-    return vals.to(torch.float64)
+    out = torch.full((n_seg,), ident, dtype=k.dtype, device=k.device)
+    out.scatter_reduce_(0, gid, k, "amin" if fn == "min" else "amax")
+    return _from_order_key(out, vals.dtype)
 
 
 def _grouped_sums(node: ir.Aggregate, values: Callable, gid: torch.Tensor,
                   G: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """``grouped_agg`` over ``gid`` (int32; ids >= G dropped) for each sum
-    and mean of the node, whose value column ``values(col)`` gives:
-    ({name: sums (G,) f64}, counts (G,) int64)."""
+    and mean of the node, whose value column ``values(col)`` gives at its
+    stored dtype (the kernel adds in f64): ({name: sums (G,) f64}, counts
+    (G,) int64)."""
     sums: Dict[str, torch.Tensor] = {}
     cnt = None
     for name, fn, col in node.aggs:
         if fn in ("sum", "mean"):
-            sums[name], cnt = gak.grouped_agg(gid, _agg_values(values(col)), G)
+            sums[name], cnt = gak.grouped_agg(gid, values(col).contiguous(),
+                                              G)
     if cnt is None:
         _, cnt = gak.grouped_agg(gid, None, G)
     return sums, cnt
@@ -548,16 +597,16 @@ def _agg_keyless(node: ir.Aggregate, t: _MT) -> _MT:
         if fn == "count":
             v = n_valid.to(torch.int64)
         elif fn == "sum":
-            v = torch.where(t.valid, arr, 0).sum()
+            v = keyless_sum(_zeroed(arr, t.valid))
         elif fn == "mean":
-            s = torch.where(t.valid, arr, 0).to(torch.float64).sum()
+            s = as_float64(_zeroed(arr, t.valid)).sum()
             v = torch.where(n_valid > 0, s / n_valid.clamp(min=1), 0.0)
         else:
             sent = _minmax_sentinel(arr.dtype, want_max=(fn == "min"))
             red = torch.amin if fn == "min" else torch.amax
-            v = red(torch.where(t.valid, arr, sent))
-            v = torch.where(n_valid > 0, v, torch.zeros((), dtype=v.dtype,
-                                                        device=v.device))
+            k = red(torch.where(t.valid, _order_key(arr), sent))
+            zero = 0.0 if arr.is_floating_point() else _key_of(0, arr.dtype)
+            v = _from_order_key(torch.where(n_valid > 0, k, zero), arr.dtype)
         out[name] = v.reshape(1)
     return _MT(out, torch.ones(1, dtype=torch.bool, device=t.valid.device))
 
@@ -589,7 +638,8 @@ def _agg_code(node: ir.Aggregate, t: _MT, spec: Tuple, ctx: Dict) -> _MT:
     for k, mn, d, stp in zip(node.keys, mins, dims, strides):
         col = t.cols[k]
         key_dtypes.append(col.dtype)
-        off = col.to(torch.int64) - mn
+        _check_i64(mn, f"aggregate key {k}")
+        off = _as_i64(col) - mn
         oob = oob | (off < 0) | (off >= d)
         code = code + off.clamp(0, d - 1) * stp
     ctx["respec"].append((valid & oob).any())
@@ -611,23 +661,21 @@ def _agg_code(node: ir.Aggregate, t: _MT, spec: Tuple, ctx: Dict) -> _MT:
             out[name] = sums[name][oc]
         elif fn == "mean":
             out[name] = (sums[name] / cnt.clamp(min=1))[oc]
-        else:
-            vals = t.cols[col]
-            sent = _minmax_sentinel(vals.dtype, want_max=(fn == "min"))
-            red = _segment_minmax(torch.where(valid, vals, sent),
-                                  gid.to(torch.int64), D + 1, fn)
-            out[name] = red[:D][oc]
+        else:  # invalid rows reduce into segment D, which is dropped
+            red = _segment_minmax(t.cols[col], gid.to(torch.int64), D + 1,
+                                  fn)
+            out[name] = gather(red[:D], oc)
     return _MT(out, torch.arange(D, device=dev) < n_groups)
 
 
 def _lexsort(keys: List[torch.Tensor], primary: torch.Tensor
              ) -> torch.Tensor:
     """``np.lexsort(tuple(reversed(keys)) + (primary,))``: the order by
-    ``primary``, then ``keys[0]``, ``keys[1]``, ...; one stable sort a
-    key, least significant first."""
+    ``primary``, then ``keys[0]``, ``keys[1]``, ...; one stable sort of
+    each ``_order_key``, least significant first."""
     order = torch.arange(primary.shape[0], device=primary.device)
     for k in [*reversed(keys), primary]:
-        order = order[torch.sort(k[order], stable=True).indices]
+        order = order[torch.sort(_order_key(k)[order], stable=True).indices]
     return order
 
 
@@ -639,7 +687,7 @@ def _agg_lex(node: ir.Aggregate, t: _MT) -> _MT:
     ``scatter_reduce``."""
     n = t.valid.shape[0]
     dev = t.valid.device
-    key_arrs = [t.cols[k] for k in node.keys]
+    key_arrs = [_order_key(t.cols[k]) for k in node.keys]
     # primary sort key pushes invalid rows last; groups are contiguous runs
     # of equal keys among the valid prefix (lexicographic ascending: the
     # interpreter's group order)
@@ -657,8 +705,9 @@ def _agg_lex(node: ir.Aggregate, t: _MT) -> _MT:
     gid = torch.where(vs, torch.cumsum(new_group.to(torch.int64), 0) - 1, n)
     rows = torch.arange(n, device=dev)
     starts = _segment_minmax(rows, gid, n + 1, "min")[:n].clamp(0, n - 1)
-    out = {k: a[starts] for k, a in zip(node.keys, ks)}
-    sums, cnt = _grouped_sums(node, lambda c: t.cols[c][order],
+    out = {k: _from_order_key(a[starts], t.cols[k].dtype)
+           for k, a in zip(node.keys, ks)}
+    sums, cnt = _grouped_sums(node, lambda c: gather(t.cols[c], order),
                               gid.to(torch.int32), n)
     for name, fn, col in node.aggs:
         if fn == "count":
@@ -668,8 +717,8 @@ def _agg_lex(node: ir.Aggregate, t: _MT) -> _MT:
         elif fn == "mean":
             out[name] = sums[name] / cnt.clamp(min=1)
         else:
-            out[name] = _segment_minmax(t.cols[col][order], gid, n + 1,
-                                        fn)[:n]
+            out[name] = _segment_minmax(gather(t.cols[col], order), gid,
+                                        n + 1, fn)[:n]
     return _MT(out, rows < n_groups)
 
 
@@ -679,7 +728,7 @@ def _lut_probe(l: _MT, lkey: str, jname: str, ctx: Dict):
     li = ctx["inputs"][jname]
     lut, kmin = li["lut"], li["kmin"]
     size = lut.shape[0]
-    off = l.cols[lkey].to(torch.int64) - kmin
+    off = _as_i64(l.cols[lkey]) - kmin
     inb = (off >= 0) & (off < size)
     ridx = lut[off.clamp(0, size - 1)]
     return l.valid & inb & (ridx >= 0), ridx
@@ -690,9 +739,9 @@ def _sorted_lookup(l: _MT, r: _MT, lkey: str, rkey: str):
     right keys (invalid -> +inf keeps the array sorted), then
     ``searchsorted`` of the left keys."""
     n = r.valid.shape[0]
-    rk = torch.where(r.valid, r.cols[rkey].to(torch.float64), float("inf"))
+    rk = torch.where(r.valid, as_float64(r.cols[rkey]), float("inf"))
     rs, order = torch.sort(rk, stable=True)
-    lk = l.cols[lkey].to(torch.float64)
+    lk = as_float64(l.cols[lkey])
     lo = torch.searchsorted(rs, lk).clamp(0, n - 1)
     found = l.valid & (rs[lo] == lk)
     return order, rs, lo, found
@@ -709,7 +758,7 @@ def _lower_join(node: ir.Join, ctx: Dict) -> _MT:
         cols = dict(l.cols)
         for k, v in r["cols"].items():
             if k != node.rkey or node.lkey != node.rkey:
-                cols[k if k not in cols else f"r_{k}"] = v[safe]
+                cols[k if k not in cols else f"r_{k}"] = gather(v, safe)
         return _MT(cols, found)
     r = _lower(node.right, ctx)
     order, rs, lo, found = _sorted_lookup(l, r, node.lkey, node.rkey)
@@ -717,7 +766,7 @@ def _lower_join(node: ir.Join, ctx: Dict) -> _MT:
     cols = dict(l.cols)
     for k, v in r.cols.items():
         if k != node.rkey or node.lkey != node.rkey:
-            cols[k if k not in cols else f"r_{k}"] = v[ridx]
+            cols[k if k not in cols else f"r_{k}"] = gather(v, ridx)
     # m:1 guard: adjacent equal valid (finite) sorted keys mean a left row
     # could match several right rows — the host replays the oracle
     if rs.shape[0] > 1:
@@ -741,11 +790,11 @@ def _lower_semijoin(node: ir.SemiJoin, ctx: Dict) -> _MT:
 def _lower_topk(node: ir.TopK, t: _MT) -> _MT:
     n = t.valid.shape[0]
     k = min(node.k, n)
-    v = t.cols[node.col].to(torch.float64)
+    v = as_float64(t.cols[node.col])
     scores = torch.where(t.valid, -v if node.ascending else v, float("-inf"))
     # stable: among equal scores the lower row first, as lax.top_k
     idx = torch.sort(scores, descending=True, stable=True).indices[:k]
-    return _MT({c: a[idx] for c, a in t.cols.items()},
+    return _MT({c: gather(a, idx) for c, a in t.cols.items()},
                torch.arange(k, device=idx.device) < t.valid.sum().clamp(
                    max=k))
 
@@ -760,7 +809,7 @@ def _lower_sort(node: ir.Sort, t: _MT) -> _MT:
         # reverse only the valid prefix: the interpreter's reversed order
         # on its (all-valid) rows, ties included
         order = order[torch.where(i < n_valid, n_valid - 1 - i, i)]
-    return _MT({c: a[order] for c, a in t.cols.items()}, i < n_valid)
+    return _MT({c: gather(a, order) for c, a in t.cols.items()}, i < n_valid)
 
 
 # ------------------------------------------------------------- LUT build
@@ -777,13 +826,14 @@ def _build_lut(rt: ColumnTable, rkey: str, is_join: bool
     if n == 0:
         return (torch.full((_MIN_BUCKET,), -1, dtype=torch.int64, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
-    kmin = int(rk.min())
-    dom = int(rk.max()) - kmin + 1
+    kmin, kmax = _key_range(rk)
+    dom = kmax - kmin + 1
     if dom > _LUT_CAP:
         raise TensorFallback("LUT key domain left the observed cap",
                              respec=True)
+    _check_i64(kmin, f"LUT key {rkey}")
     lut = torch.full((_bucket(dom),), -1, dtype=torch.int64, device=dev)
-    lut.index_put_((rk.to(torch.int64) - kmin,),
+    lut.index_put_((_as_i64(rk) - kmin,),
                    torch.arange(n, dtype=torch.int64, device=dev))
     if is_join and int((lut >= 0).sum()) != n:
         raise TensorFallback("duplicate right join keys (m:n)")
@@ -830,14 +880,15 @@ def _bucket(rows: int) -> int:
 
 def _pad_table(tab: ColumnTable, device) -> Tuple[Dict, Tuple]:
     """The table padded with zero rows to its bucket, on its own device
-    (``device`` for a table without columns), with its validity mask and
-    its program-cache signature."""
+    (``device`` for a table without columns), each column in its dtype,
+    with its validity mask and its program-cache signature."""
     rows = len(tab)
     b = _bucket(rows)
     dev = tab.device if tab.cols else torch.device(device)
     cols = {}
     for c, a in tab.cols.items():
-        cols[c] = a if b == rows else torch.cat([a, a.new_zeros(b - rows)])
+        cols[c] = a if b == rows else torch.cat(
+            [a, signed_view(a).new_zeros(b - rows).view(a.dtype)])
     valid = torch.arange(b, device=dev) < rows
     sig = (b,) + tuple(sorted((c, str(a.dtype)) for c, a in tab.cols.items()))
     return {"cols": cols, "valid": valid}, sig
@@ -845,7 +896,7 @@ def _pad_table(tab: ColumnTable, device) -> Tuple[Dict, Tuple]:
 
 def _unpad(out: Dict) -> ColumnTable:
     mask = out["valid"]
-    return ColumnTable({c: a[mask] for c, a in out["cols"].items()})
+    return ColumnTable({c: gather(a, mask) for c, a in out["cols"].items()})
 
 
 def device_of(merged: Dict[str, ColumnTable]) -> torch.device:

@@ -1662,10 +1662,10 @@ def test_segments_of_mixed_widths_in_one_bitmap_apply(cuda):
         assert torch.equal(o.view(torch.uint8), po.view(torch.uint8))
 
 
-def test_narrow_catalog_on_the_card_matches_the_cpu(cuda):
-    """TPC-H at its narrowest widths (uint8 codes, int16 dates, uint32
-    keys) through every query, eager and adaptive, on the card as on the
-    CPU, with the narrow dtypes kept in the results."""
+@pytest.fixture(scope="module")
+def narrow_catalogs(cuda):
+    """TPC-H at sf=1 at its narrowest widths (uint8 codes, int16 dates,
+    a uint16 quantity, uint32 keys), on the card and on the CPU."""
     U8 = {"r_regionkey", "n_nationkey", "n_regionkey", "s_nationkey",
           "c_nationkey", "c_mktsegment", "p_brand", "p_type", "p_size",
           "p_container", "o_orderpriority", "o_shippriority",
@@ -1677,8 +1677,15 @@ def test_narrow_catalog_on_the_card_matches_the_cpu(cuda):
         for c, v in cols.items()}
         for t, cols in tpch.generate_tables(1.0, 3).items()}
     from repro_torch.storage.catalog import catalog_from_arrays
-    gpu, cpu = (catalog_from_arrays(arrays, 2, 2500, device=d)
-                for d in (cuda, "cpu"))
+    return tuple(catalog_from_arrays(arrays, 2, 2500, device=d)
+                 for d in (cuda, "cpu"))
+
+
+def test_narrow_catalog_on_the_card_matches_the_cpu(cuda, narrow_catalogs):
+    """TPC-H at its narrowest widths (uint8 codes, int16 dates, uint32
+    keys) through every query, eager and adaptive, on the card as on the
+    CPU, with the narrow dtypes kept in the results."""
+    gpu, cpu = narrow_catalogs
     for qid in queries.QUERY_IDS:
         for mode in ("eager", "adaptive"):
             kernels.reset_launches()
@@ -1691,3 +1698,30 @@ def test_narrow_catalog_on_the_card_matches_the_cpu(cuda):
                 [v.dtype for v in c.result.cols.values()]
             assert results_equal(g.result, c.result), (qid, mode)
             assert g.real_net_bytes == c.real_net_bytes
+
+
+@pytest.mark.parametrize("qid", queries.QUERY_IDS)
+def test_narrow_tensor_residual_on_the_card_matches_the_interpreter(
+        cuda, narrow_catalogs, fresh_metrics, qid):
+    """The tensor backend over the narrow catalog on the card: compiled
+    once, observed, then cold and warm, each result the interpreter's
+    there in rows, in its column order and (where it has rows) its
+    dtypes, with no fallback, no error and no warm miss."""
+    from repro_torch.obs import metrics
+    gpu, _ = narrow_catalogs
+    q = queries.build_query(qid)
+    cfg = EngineConfig(mode="eager", device=cuda)
+    want = run_query(q, gpu, cfg).result
+    tcfg = dataclasses.replace(cfg, residual="tensor")
+    runs = [run_query(q, gpu, tcfg) for _ in range(3)]
+    assert runs[0].residual_jit["observed"]
+    for run in runs[1:]:
+        assert run.residual_backend == "tensor"
+        assert not run.residual_jit["fell_back"], qid
+        assert list(run.result.cols) == list(want.cols)
+        assert not len(want) or [v.dtype for v in run.result.cols.values()] \
+            == [v.dtype for v in want.cols.values()], qid
+        assert results_equal(want, run.result), qid
+    assert runs[2].residual_jit["misses"] == 0
+    assert metrics.get_metrics().snapshot()["counters"].get(
+        "residual.errors", 0) == 0

@@ -111,8 +111,8 @@ class NoWideKernels(TorchFunctionMode):
                T.data_ptr, T.is_contiguous, T.stride, T.storage_offset,
                T.__len__, T.__repr__, T.__format__, T.tolist, T.numpy,
                T.reshape, T.copy_, T.pin_memory, torch.split, T.split,
-               T.is_floating_point, T.untyped_storage, T.new_empty,
-               T.__iter__}
+               T.is_floating_point, T.is_complex, T.untyped_storage,
+               T.new_empty, T.__iter__}
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -143,10 +143,13 @@ def test_the_guard_refuses_what_the_card_lacks():
     u = torch.tensor([3, 1], dtype=torch.uint32)
     with NoWideKernels():
         for bad in (lambda: u[torch.tensor([0])], lambda: u < 2,
-                    lambda: torch.sort(u), lambda: u.amax()):
+                    lambda: torch.sort(u), lambda: u.amax(),
+                    lambda: u.max()):
             with pytest.raises(RuntimeError, match="no such kernel"):
                 bad()
         assert u[1:].tolist() == [1]
+        # a dtype query, as is_floating_point: the card needs no kernel
+        assert not u.is_complex() and not u.is_floating_point()
         assert u.view(torch.int32)[torch.tensor([0])].tolist() == [3]
 
 
