@@ -111,8 +111,11 @@ def compile_query_detailed(qid: str,
 
 
 def compile_query(qid: str, fact_selectivity: Optional[float] = None) -> Query:
-    """IR -> split -> engine-ready Query (the main entry point)."""
-    return compile_query_detailed(qid, fact_selectivity).query
+    """IR -> split -> engine-ready Query (the main entry point). Traced, it
+    is one ``compile`` span, as the costed path's, with ``costed=False``."""
+    with obs_trace.get_tracer().span("compile", cat="compiler",
+                                     qid=qid.upper(), costed=False):
+        return compile_query_detailed(qid, fact_selectivity).query
 
 
 def _candidate_score(plan: PushPlan, table: str, catalog,

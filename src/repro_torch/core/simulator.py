@@ -27,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN, Arbitrator
 from repro_torch.core.cost import RequestCost, StorageResources
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import get_metrics
 
 EPS = 1e-12
 
@@ -146,7 +147,9 @@ def simulate(requests: List[SimRequest], res: StorageResources,
     ``measured`` (an ``arbitrator.MeasuredLoad``) makes every node's
     backlog guard read the measured ``stream.*`` queue depths;
     ``breaker`` (a ``core.faults.CircuitBreaker``) is shared by every
-    node's Arbitrator."""
+    node's Arbitrator. Each call adds its event loop's work to the
+    registry, traced or not: ``sim.events``, the iterations that advance
+    time, and ``sim.rerates``, the active tasks re-rated over them."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     tr = obs_trace.get_tracer()
@@ -185,6 +188,7 @@ def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
     cpu_busy = {n: 0.0 for n in nodes}
     now = 0.0
     i = 0
+    n_events = n_rerates = 0
 
     def start_assignments(assigns, t):
         for req_id, path in assigns:
@@ -200,6 +204,8 @@ def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
                 now = pending[i].arrival
                 continue
             break
+        n_events += 1
+        n_rerates += len(active)
 
         # fluid rates for the current instant
         disk_n = {n: 0 for n in nodes}
@@ -256,6 +262,9 @@ def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
         for n, path in freed:
             start_assignments(arbs[n].release(path), now)
 
+    m = get_metrics()
+    m.counter("sim.events").inc(n_events)
+    m.counter("sim.rerates").inc(n_rerates)
     per_request = {rid: (t.path, t.start, t.finish) for rid, t in done.items()}
     fin_q: Dict[str, float] = {}
     adm_q: Dict[str, int] = {}

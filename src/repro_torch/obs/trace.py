@@ -26,22 +26,45 @@ tracing is on (``record_filter_decision``), and counts them in the
 
 Span attributes hold host values: a tensor attribute of more than one
 element would make an exporter copy it off the device.
+
+While an enabled tracer is installed (``set_tracer``), three hooks hear
+what no span brackets: every garbage collection is a closed ``gc`` span
+(cat ``host``, ``generation``, ``collected``) under the thread's current
+span, recorded when the collection ends and handed to a sink only later,
+from outside the collector, since a collection may run inside a sink's
+own lock; where CUDA is initialised, every synchronising CUDA call made
+inside an open span is a zero-length ``device_sync`` event under it
+(torch's sync debug mode set to ``"warn"``, its warning recorded and not
+printed); and the registry's counters are read at install and
+uninstall, their deltas kept for ``last_counters()``. Uninstalling
+restores the collector's callbacks, the sync debug mode and the warning
+filters; with tracing off none of the hooks is in place.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import itertools
+import sys
 import threading
 import time
+import warnings
 from typing import Dict, Iterator, List, Optional
 
 from repro_torch.obs.metrics import get_metrics
 
 __all__ = [
     "Span", "Tracer", "DecisionChannel", "NULL_TRACER",
-    "get_tracer", "set_tracer", "tracing",
+    "get_tracer", "set_tracer", "tracing", "last_counters",
     "record_filter_decision", "filter_decision_channel",
 ]
+
+_DEVICE_SYNC = "device_sync"   # a host wait on the card, inside a span
+_GC_SPAN = "gc"                # a garbage collection
+# the start of torch's warning in sync debug mode "warn"
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+_PROTOTYPE_WARNING = "Synchronization debug mode is a prototype"
 
 
 class Span:
@@ -302,6 +325,8 @@ class Tracer:
         spans.append(sp)            # atomic under the GIL
         sink = self.sink
         if sink is not None:
+            if _gc_unsent:
+                _send_gc()
             sink.on_start(sp)
         return sp
 
@@ -416,6 +441,10 @@ class _NullTracer(Tracer):
 NULL_TRACER = _NullTracer()
 
 _tracer: Tracer = NULL_TRACER
+# the registry's counters when an enabled tracer went in, and their deltas
+# over the last stretch one was installed
+_counters_at_install: Dict[str, float] = {}
+_last_counters: Dict[str, float] = {}
 
 
 def get_tracer() -> Tracer:
@@ -424,11 +453,133 @@ def get_tracer() -> Tracer:
 
 
 def set_tracer(tracer: Optional[Tracer]) -> Tracer:
-    """Install ``tracer`` (None -> disable); returns the previous one."""
-    global _tracer
+    """Install ``tracer`` (None -> disable); returns the previous one.
+    The hooks of an enabled tracer (the module's docstring) go in when
+    tracing turns on and come out when it turns off."""
+    global _tracer, _counters_at_install, _last_counters
     prev = _tracer
-    _tracer = tracer if tracer is not None else NULL_TRACER
+    new = tracer if tracer is not None else NULL_TRACER
+    if prev.enabled:
+        now = get_metrics().snapshot()["counters"]
+        _last_counters = {k: v - _counters_at_install.get(k, 0.0)
+                          for k, v in now.items()}
+    if new.enabled:
+        _counters_at_install = get_metrics().snapshot()["counters"]
+    if new.enabled and not prev.enabled:
+        _install_hooks()
+    elif prev.enabled and not new.enabled:
+        _remove_hooks()
+    if _gc_unsent:      # after the hooks are out: no span is left unsent
+        _send_gc()
+    _tracer = new
     return prev
+
+
+def last_counters() -> Dict[str, float]:
+    """What the registry's counters counted over the last stretch an
+    enabled tracer was installed, for a caller that no longer holds it."""
+    return dict(_last_counters)
+
+
+# ------------------------------------------------ hooks of enabled tracing
+_gc_start = None             # (tracer, parent sid, t0, generation) under way
+_gc_unsent = collections.deque()   # (tracer, gc span) no sink has heard
+_sync_route = None           # the saved warning state while syncs are heard
+
+
+def _on_gc(phase: str, info: Dict) -> None:
+    """Record a collection as a closed span without calling a sink: the
+    collector may run inside a sink's lock (a write that allocates), so
+    the span waits in ``_gc_unsent`` for the next span that opens."""
+    global _gc_start
+    if phase == "start":
+        tr = _tracer
+        if tr.enabled:
+            stack = getattr(tr._local, "stack", None)
+            _gc_start = (tr, stack[-1].sid if stack else None,
+                         time.perf_counter(), info["generation"])
+        return
+    if _gc_start is None:
+        return
+    tr, pid, t0, generation = _gc_start
+    _gc_start = None
+    if len(tr.spans) >= tr.max_spans:
+        tr.dropped += 1
+        return
+    sp = Span.__new__(Span)
+    sp.sid = next(tr._sid)
+    sp.parent = pid
+    sp.name = _GC_SPAN
+    sp.cat = "host"
+    sp.tid = threading.get_ident()
+    sp.attrs = {"generation": generation, "collected": info["collected"]}
+    sp.t0 = t0 - tr.t0
+    sp.dur = time.perf_counter() - t0
+    tr.spans.append(sp)
+    if tr.sink is not None:
+        _gc_unsent.append((tr, sp))
+
+
+def _send_gc() -> None:
+    """Hand the recorded ``gc`` spans to their tracers' sinks: those there
+    now, since a sink's writes may collect and record more."""
+    for _ in range(len(_gc_unsent)):
+        try:
+            tr, sp = _gc_unsent.popleft()
+        except IndexError:      # another thread took the last one
+            return
+        sink = tr.sink
+        if sink is not None:
+            sink.on_start(sp)
+            sink.on_end(sp)
+
+
+def _on_sync() -> None:
+    tr = _tracer
+    if tr.enabled and tr.current() is not None:
+        tr.event(_DEVICE_SYNC, cat="device")
+
+
+def _install_hooks() -> None:
+    """The ``gc`` callback, and where CUDA is initialised and torch's sync
+    debug mode is at its default, the ``device_sync`` route: the mode set
+    to ``"warn"``, its warning let through every time and heard by a
+    ``showwarning`` that records it and passes every other warning on.
+    torch is not imported here: tracing stays host-only where nothing
+    else loaded it."""
+    global _sync_route
+    gc.callbacks.append(_on_gc)
+    torch = sys.modules.get("torch")
+    if (torch is None or not torch.cuda.is_initialized()
+            or torch.cuda.get_sync_debug_mode() != 0):
+        return
+    _sync_route = warnings.catch_warnings()
+    _sync_route.__enter__()
+    show = warnings.showwarning
+
+    def hear(message, category, filename, lineno, file=None, line=None):
+        if str(message).startswith(_SYNC_WARNING):
+            _on_sync()
+        else:
+            show(message, category, filename, lineno, file, line)
+
+    warnings.filterwarnings("always", message=_SYNC_WARNING)
+    # torch says once a process that the mode is a prototype that may miss
+    # syncs; the benchmark's traced runs hold the count to the profiler's
+    warnings.filterwarnings("ignore", message=_PROTOTYPE_WARNING)
+    warnings.showwarning = hear
+    torch.cuda.set_sync_debug_mode("warn")
+
+
+def _remove_hooks() -> None:
+    global _sync_route, _gc_start
+    if _on_gc in gc.callbacks:
+        gc.callbacks.remove(_on_gc)
+    _gc_start = None
+    if _sync_route is not None:
+        sys.modules["torch"].cuda.set_sync_debug_mode(0)
+        _sync_route.__exit__(None, None, None)
+        _sync_route = None
 
 
 @contextlib.contextmanager

@@ -1098,6 +1098,29 @@ def test_traced_card_run_holds_no_multi_element_tensor_in_its_spans(
     assert len(spans) == len(tr.snapshot())
 
 
+def test_one_item_is_one_device_sync_under_its_span(cuda):
+    """Tracing hears a synchronising call made inside a span as one
+    ``device_sync`` event under it, and none outside a span; without a
+    tracer the sync debug mode is back at its default and nothing is
+    heard or printed."""
+    import warnings
+    from repro_torch.obs import trace
+    x = torch.ones(1, device=cuda)
+    torch.cuda.synchronize()
+    with trace.tracing() as tr:
+        assert torch.cuda.get_sync_debug_mode() == 1
+        with tr.span("outer") as sp:
+            x.item()
+        x.item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    (ev,) = tr.find("device_sync")
+    assert ev.parent == sp.sid and ev.dur == 0.0
+    with warnings.catch_warnings(record=True) as heard:
+        warnings.simplefilter("always")
+        x.item()
+    assert not [w for w in heard if "synchroniz" in str(w.message)]
+
+
 # ----------------------------------------------------------- process tier
 def _worker_launches(pool):
     out = dict.fromkeys(kernels.WRAPPERS, 0)

@@ -19,6 +19,8 @@ import dataclasses
 import numpy as np
 import pytest
 
+import port_spans
+
 import repro.core.engine as reng  # before repro.queryproc.queries
 from repro.core import faults as rfaults
 from repro.core import runtime as rruntime
@@ -486,7 +488,7 @@ def test_fault_free_split_is_exactly_prior_behaviour(qid, cats,
 def _span_record(tr):
     """What a traced run's spans say: (name, sorted attribute names) of
     each span in order, and the fault events' coordinates."""
-    names = [s.name for s in tr.snapshot()]
+    names = [s.name for s in port_spans.spans(tr)]
     events = [(s.attrs["kind"], s.attrs["node"], s.attrs["table"],
                s.attrs["path"], s.attrs["attempt"])
               for s in tr.find("fault_injected")]
