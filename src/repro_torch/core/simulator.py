@@ -8,7 +8,12 @@ is made (``run_stream`` orders real work by it), and the whole run is
 one ``arbitrate`` span.
 Every task is a sequence of (resource, bytes) stages; resources serve the
 active tasks at deterministic rates; events fire when the earliest stage
-drains. Per storage node:
+drains. The active set is a few arrays in the order the Arbitrators
+assigned the tasks, so that an event is a few vector passes (numpy, on
+the host) and only the tasks whose stage drained are handled one by one;
+the order is kept because their freed slots are released in it, and a
+release can start tasks. The floats are the reference's per-task loop's,
+bit for bit. Per storage node:
 
 - disk: shared scan bandwidth, equal fluid share across active scans
 - cpu:  one pushdown execution slot = one core at ``eff_core_bw``
@@ -21,8 +26,9 @@ drains. Per storage node:
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN, Arbitrator
 from repro_torch.core.cost import RequestCost, StorageResources
@@ -36,6 +42,7 @@ MODE_EAGER = "eager"
 MODE_ADAPTIVE = "adaptive"
 MODE_ADAPTIVE_PA = "adaptive_pa"
 MODES = (MODE_NO_PUSHDOWN, MODE_EAGER, MODE_ADAPTIVE, MODE_ADAPTIVE_PA)
+_RESOURCE = {"disk": 0, "cpu": 1, "net": 2}   # a row's rate-table block
 
 
 @dataclasses.dataclass
@@ -51,16 +58,15 @@ class SimRequest:
 class TaskState:
     req: SimRequest
     path: str
-    stages: List[Tuple[str, float]]   # (resource, remaining bytes)
+    # (resource, bytes) of the cost; the current stage's remaining bytes
+    # are in the event loop's arrays
+    stages: List[Tuple[str, float]]
     slot_until: int = 10 ** 9         # slot frees once idx passes this stage
     idx: int = 0
     start: float = 0.0
     finish: Optional[float] = None
     slot_freed: bool = False
-
-    @property
-    def resource(self) -> str:
-        return self.stages[self.idx][0]
+    thr: float = 0.0                  # a stage at or below this retires
 
 
 @dataclasses.dataclass
@@ -93,7 +99,8 @@ def _mk_task(req: SimRequest, path: str, now: float) -> TaskState:
     else:
         stages = [("disk", float(c.s_in)), ("net", float(c.s_in))]
         slot_until = 10 ** 9
-    return TaskState(req, path, stages, slot_until, 0, now)
+    return TaskState(req, path, stages, slot_until, 0, now,
+                     thr=EPS * max(1.0, c.s_in))
 
 
 class _ForcedArbitrator:
@@ -149,7 +156,8 @@ def simulate(requests: List[SimRequest], res: StorageResources,
     ``breaker`` (a ``core.faults.CircuitBreaker``) is shared by every
     node's Arbitrator. Each call adds its event loop's work to the
     registry, traced or not: ``sim.events``, the iterations that advance
-    time, and ``sim.rerates``, the active tasks re-rated over them."""
+    time, ``sim.rerates``, the active tasks re-rated over them, and
+    ``sim.advances``, the drained stages handled one task at a time."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     tr = obs_trace.get_tracer()
@@ -171,6 +179,18 @@ def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
               decisions: Optional[Dict[int, str]],
               on_decision: Optional[Callable[[int, str], None]],
               measured, breaker) -> SimResult:
+    """The event loop, with the active set held as arrays: one row a
+    task, in active order (the order the Arbitrators assigned them in),
+    with its resource and node as one code into the rate table (kept
+    current with the per-code task counts), its current stage's remaining
+    bytes and its retire threshold. An event is a few vector passes:
+    gather the rates, take the next drain, advance every stage. Only the
+    tasks whose stage drained go through Python, in active order, as the
+    per-task loop took them: their freed slots are released in that
+    order, and each release can start tasks. So a started task's row is
+    appended and a finished one's cut out with the rows behind it moved
+    up. Every float is the per-task loop's: the same IEEE operations on
+    the same values in the same order."""
     nodes = sorted({r.node_id for r in requests})
     forced = {MODE_NO_PUSHDOWN: PUSHBACK, MODE_EAGER: PUSHDOWN}.get(mode)
     if decisions is not None:
@@ -183,16 +203,45 @@ def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
                 for n in nodes}
     by_id = {r.req_id: r for r in requests}
     pending = sorted(requests, key=lambda r: (r.arrival, r.req_id))
+    n_nodes = len(nodes)
+    pos = {n: k for k, n in enumerate(nodes)}
+    disk_bw, net_bw = res.disk_bw, res.net_bw
+    stream_bw = res.stream_bw
+    # row j of the arrays is active[j]; a code is resource * n_nodes + node
     active: List[TaskState] = []
+    code = np.empty(len(requests), dtype=np.intp)
+    rem = np.empty(len(requests))
+    thr = np.empty(len(requests))
+    count = [0] * (3 * n_nodes)           # active tasks per code
+    rates = np.full(3 * n_nodes, res.eff_core_bw)   # a task's rate per code
+
+    def recount(c: int, step: int) -> None:
+        """Move code ``c``'s count by ``step``, and its fluid rate with it."""
+        k = count[c] = count[c] + step
+        if c < n_nodes:
+            rates[c] = disk_bw / max(1, k)
+        elif c >= 2 * n_nodes:
+            rates[c] = min(stream_bw, net_bw / max(1, k))
+
+    for c in range(3 * n_nodes):
+        recount(c, 0)
     done: Dict[int, TaskState] = {}
-    cpu_busy = {n: 0.0 for n in nodes}
+    cpu_busy = [0.0] * n_nodes
     now = 0.0
     i = 0
-    n_events = n_rerates = 0
+    n_events = n_rerates = n_advances = 0
 
     def start_assignments(assigns, t):
         for req_id, path in assigns:
-            active.append(_mk_task(by_id[req_id], path, t))
+            req = by_id[req_id]
+            task = _mk_task(req, path, t)
+            j = len(active)
+            active.append(task)
+            c = pos[req.node_id]          # every task starts on the disk
+            code[j] = c
+            rem[j] = task.stages[0][1]
+            thr[j] = task.thr
+            recount(c, 1)
 
     while i < len(pending) or active:
         while i < len(pending) and pending[i].arrival <= now + EPS:
@@ -204,67 +253,72 @@ def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
                 now = pending[i].arrival
                 continue
             break
+        n = len(active)
         n_events += 1
-        n_rerates += len(active)
+        n_rerates += n
 
         # fluid rates for the current instant
-        disk_n = {n: 0 for n in nodes}
-        net_n = {n: 0 for n in nodes}
-        for t in active:
-            if t.resource == "disk":
-                disk_n[t.req.node_id] += 1
-            elif t.resource == "net":
-                net_n[t.req.node_id] += 1
-
-        def rate(t: TaskState) -> float:
-            n = t.req.node_id
-            if t.resource == "disk":
-                return res.disk_bw / max(1, disk_n[n])
-            if t.resource == "cpu":
-                return res.eff_core_bw
-            return min(res.stream_bw, res.net_bw / max(1, net_n[n]))
+        rate = rates[code[:n]]
+        left = rem[:n]                    # a view: advancing it advances rem
 
         # next event: earliest stage completion or next arrival
-        dt = math.inf
-        for t in active:
-            rem = t.stages[t.idx][1]
-            dt = min(dt, rem / rate(t) if rem > 0 else 0.0)
+        dt = float(np.where(left > 0, left / rate, 0.0).min())
         if i < len(pending):
             dt = min(dt, pending[i].arrival - now)
         dt = max(dt, 0.0)
 
-        for t in active:
-            r = rate(t)
-            res_name, rem = t.stages[t.idx]
-            t.stages[t.idx] = (res_name, rem - r * dt)
-            if res_name == "cpu":
-                cpu_busy[t.req.node_id] += dt
+        left -= rate * dt
+        # one add a cpu-stage task, as the per-task loop made them: k adds
+        # of dt can round otherwise than one add of k * dt
+        for k in range(n_nodes):
+            busy = cpu_busy[k]
+            for _ in range(count[n_nodes + k]):
+                busy += dt
+            cpu_busy[k] = busy
         now += dt
 
-        still: List[TaskState] = []
+        drained = (left <= thr[:n]).nonzero()[0].tolist()
+        if not drained:
+            continue
+        n_advances += len(drained)
         freed: List[Tuple[int, str]] = []
-        for t in active:
-            while t.idx < len(t.stages) and t.stages[t.idx][1] <= EPS * max(
-                    1.0, t.req.cost.s_in):
+        gone: List[int] = []
+        for j in drained:
+            t = active[j]
+            recount(int(code[j]), -1)
+            stages = t.stages
+            t.idx += 1
+            while t.idx < len(stages) and stages[t.idx][1] <= t.thr:
                 t.idx += 1
             if not t.slot_freed and t.idx > t.slot_until:
                 t.slot_freed = True
                 freed.append((t.req.node_id, t.path))
-            if t.idx >= len(t.stages):
+            if t.idx >= len(stages):
                 t.finish = now
                 done[t.req.req_id] = t
+                gone.append(j)
                 if not t.slot_freed:
                     t.slot_freed = True
                     freed.append((t.req.node_id, t.path))
             else:
-                still.append(t)
-        active = still
-        for n, path in freed:
-            start_assignments(arbs[n].release(path), now)
+                res_name, left_bytes = stages[t.idx]
+                c = _RESOURCE[res_name] * n_nodes + pos[t.req.node_id]
+                code[j] = c
+                rem[j] = left_bytes
+                recount(c, 1)
+        for j in reversed(gone):          # close each gap, keeping order
+            code[j:n - 1] = code[j + 1:n]
+            rem[j:n - 1] = rem[j + 1:n]
+            thr[j:n - 1] = thr[j + 1:n]
+            del active[j]
+            n -= 1
+        for node, path in freed:
+            start_assignments(arbs[node].release(path), now)
 
     m = get_metrics()
     m.counter("sim.events").inc(n_events)
     m.counter("sim.rerates").inc(n_rerates)
+    m.counter("sim.advances").inc(n_advances)
     per_request = {rid: (t.path, t.start, t.finish) for rid, t in done.items()}
     fin_q: Dict[str, float] = {}
     adm_q: Dict[str, int] = {}
@@ -282,4 +336,5 @@ def _simulate(requests: List[SimRequest], res: StorageResources, mode: str,
         else:
             pb_q[q] = pb_q.get(q, 0) + 1
     return SimResult(per_request, fin_q, adm_q, pb_q, net_total, net_q,
-                     cpu_busy, max(fin_q.values()) if fin_q else 0.0)
+                     dict(zip(nodes, cpu_busy)),
+                     max(fin_q.values()) if fin_q else 0.0)
