@@ -4,8 +4,8 @@ computed in float32, the precision below the configurations' float64.
     python3 olapbench/control.py --workload <cell> --seeds <n> [<n> ...]
 
 For each seed it makes the cell's tables as a run does, works out every
-query of the cell's mix in float64 (the reference) and in float32 (the
-control), and compares the control's results with the reference's as a
+query of the cell's mix (of every stream, where it has several) in
+float64 (the reference) and in float32 (the control), and compares the control's results with the reference's as a
 run compares the program's, printing one JSON line a seed with the
 numbers compared beside their limits. The control has to come out as not
 correct; the smallest ``result_rel_err`` it reads is the upper reading
@@ -25,9 +25,10 @@ def readings(tables, mix, device="cpu"):
     import torch
     from olapbench import compare, harness
     worst, wrong, why = 0.0, 0, []
-    want = harness.references(tables, mix["order"], device)
-    got = harness.references(tables, mix["order"], device, torch.float32)
-    for qid in mix["order"]:
+    qids = harness.queries_of(mix)
+    want = harness.references(tables, qids, device)
+    got = harness.references(tables, qids, device, torch.float32)
+    for qid in qids:
         fault, gap = compare.compare_result(got[qid], want[qid])
         worst = max(worst, gap)
         if fault is not None:

@@ -5,6 +5,11 @@ Everything a cell is made of is found by name: the cell in
 ``BENCHMARK.json``, its configuration in ``configs/<config>.json``, its
 traffic in ``mixes/<traffic>.json``, each query's reference in
 ``queries/<qid>.py`` and each metric's reader in ``metrics/<metric>.py``.
+
+A mix names either one ``order``, which one closed-loop client sends
+through ``compile_and_run`` (``drive``), or several ``streams``, which go
+in rounds of one query from each stream through ``run_stream``
+(``drive_streams``).
 """
 from __future__ import annotations
 
@@ -103,6 +108,13 @@ def reader(metric: str) -> Callable[[Run], Optional[float]]:
     return mod.read
 
 
+def queries_of(mix: Dict) -> List[str]:
+    """Every query of a mix once: its ``order``, or its ``streams`` in the
+    order each query first appears in them, stream by stream."""
+    return list(dict.fromkeys(
+        q for s in mix.get("streams", [mix.get("order", [])]) for q in s))
+
+
 def reference_of(qid: str):
     return importlib.import_module(f"olapbench.queries.{qid}").reference
 
@@ -159,6 +171,22 @@ def _owned(v: torch.Tensor) -> torch.Tensor:
         else v
 
 
+def _done(qid: str, latency_s: float, real_net_bytes, requests, outcomes,
+          cols: Dict, called_ns: int) -> Done:
+    """One completed query's record from its requests, their outcomes and
+    its result columns."""
+    by_id = {r.req_id: r for r in requests}
+    pb, pd = [], []
+    for o in outcomes:
+        if o.replayed:
+            pb.append((o.table, by_id[o.req_id].part.index,
+                       int(o.shipped_bytes)))
+        else:
+            pd.append((o.table, int(o.rows_out), int(o.shipped_bytes)))
+    return Done(qid, latency_s, int(real_net_bytes), len(requests), pb, pd,
+                {k: _owned(v) for k, v in cols.items()}, called_ns)
+
+
 def drive(order: List[str], start: int, catalog, cfg, seconds: float,
           sync: Callable[[], None], options: Optional[Dict] = None):
     """The closed loop of one client: each query goes when the last one's
@@ -188,19 +216,116 @@ def drive(order: List[str], start: int, catalog, cfg, seconds: float,
             t = time.perf_counter()
             continue
         t = time.perf_counter()
-        by_id = {r.req_id: r for r in run.requests}
-        pb, pd = [], []
-        for o in run.outcomes:
-            if o.replayed:
-                pb.append((o.table, by_id[o.req_id].part.index,
-                           int(o.shipped_bytes)))
-            else:
-                pd.append((o.table, int(o.rows_out), int(o.shipped_bytes)))
-        done.append(Done(qid, t - a, int(run.real_net_bytes),
-                         len(run.requests), pb, pd,
-                         {k: _owned(v) for k, v in run.result.cols.items()},
-                         int(a * 1e9)))
+        done.append(_done(qid, t - a, run.real_net_bytes, run.requests,
+                          run.outcomes, run.result.cols, int(a * 1e9)))
         del run
+    return t - t0, done, attempted, failed
+
+
+class StreamTap:
+    """What ``run_stream`` builds for each request and does not hand back,
+    recorded while the tap is installed: the planned requests (each
+    ``engine.plan_requests`` call's list, whose ``query_id`` the stream
+    sets to the entry's key) and every ``runtime.RequestOutcome``. Both
+    are wrapped, not changed: the program's calls go through as they are,
+    and the byte check reads what they made."""
+
+    def __init__(self):
+        self.requests: List = []
+        self.outcomes: List = []
+
+    def take(self) -> Tuple[List, List]:
+        """What was recorded since the last take, and forget it."""
+        out = self.requests, self.outcomes
+        self.requests, self.outcomes = [], []
+        return out
+
+    def __enter__(self):
+        from repro_torch.core import engine, runtime
+        plan, outcome = engine.plan_requests, runtime.RequestOutcome
+
+        def planned(*a, **k):
+            reqs = plan(*a, **k)
+            self.requests.extend(reqs)
+            return reqs
+
+        def made(*a, **k):
+            o = outcome(*a, **k)
+            self.outcomes.append(o)   # one append: safe across the pools
+            return o
+        self._restore = (plan, outcome)
+        engine.plan_requests, runtime.RequestOutcome = planned, made
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine, runtime
+        engine.plan_requests, runtime.RequestOutcome = self._restore
+
+
+def run_round(qids: List[str], catalog, cfg, options: Dict):
+    """One round: each query compiled as ``compile_and_run`` compiles it
+    (the mix's ``compile`` keys), then all of them submitted together, at
+    arrival 0, as one ``run_stream`` call."""
+    from repro_torch import compiler
+    from repro_torch.core.runtime import StreamQuery, run_stream
+    fs = options.get("fact_selectivity")
+    if options.get("cost_based"):
+        queries = [compiler.compile_query_costed(
+            q, catalog, res=cfg.res, corrector=cfg.corrector,
+            fact_selectivity=fs, compute_bw=cfg.compute_bw).query
+            for q in qids]
+    else:
+        queries = [compiler.compile_query(q, fs) for q in qids]
+    return run_stream([StreamQuery(q) for q in queries], catalog, cfg)
+
+
+def drive_streams(streams: List[List[str]], start: int, catalog, cfg,
+                  seconds: float, sync: Callable[[], None],
+                  options: Optional[Dict] = None):
+    """The closed loop of rounds: round k takes position ``start + k``
+    (modulo a stream's length) of every stream and goes when the last
+    round's ``run_stream`` has returned and the device is synchronised,
+    until ``seconds`` have passed. Every query of a round is timed from
+    the round's call to that synchronisation; a query that appears twice
+    in a round runs twice (``run_stream`` keys it ``qid#1``). A round
+    that raises counts each of its queries as attempted and failed.
+    Returns (window seconds, completed queries, attempted, failed)."""
+    options = options or {}
+    done: List[Done] = []
+    attempted = failed = 0
+    k = start
+    t0 = time.perf_counter()
+    end = t0 + seconds
+    t = t0
+    with StreamTap() as tap:
+        while t < end and failed < MAX_FAILED:
+            qids = [s[k % len(s)] for s in streams]
+            k += 1
+            attempted += len(qids)
+            tap.take()
+            a = time.perf_counter()
+            try:
+                stream = run_round(qids, catalog, cfg, options)
+                sync()
+            except Exception:  # a round that raises fails all its queries
+                failed += len(qids)
+                traceback.print_exc(file=sys.stderr)
+                t = time.perf_counter()
+                continue
+            t = time.perf_counter()
+            requests, outcomes = tap.take()
+            by_key: Dict[str, List] = {}
+            for r in requests:
+                by_key.setdefault(r.query_id, []).append(r)
+            outcome_of = {o.req_id: o for o in outcomes}
+            for key, entry in stream.per_query.items():
+                reqs = by_key.get(key, [])
+                done.append(_done(
+                    key.partition("#")[0], t - a, entry["real_net_bytes"],
+                    reqs, [outcome_of[r.req_id] for r in reqs
+                           if r.req_id in outcome_of],
+                    stream.results[key].cols, int(a * 1e9)))
+            del stream
     return t - t0, done, attempted, failed
 
 
@@ -257,11 +382,13 @@ def forbidden_modules() -> List[str]:
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool,
              t_start: float, device: str = "cuda",
-             config_override: Optional[Dict] = None) -> Dict:
+             config_override: Optional[Dict] = None,
+             bench: Optional[Dict] = None) -> Dict:
     """One run; returns the result line. ``device="cpu"`` and a smaller
     ``config_override`` serve the CPU tests, which skip the look for a
-    chip."""
-    cell, config, mix, bench = cell_parts(name)
+    chip; ``bench`` stands in for ``BENCHMARK.json`` (a cell that it does
+    not hold yet)."""
+    cell, config, mix, bench = cell_parts(name, bench)
     config = config_override or config
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -276,10 +403,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     options = compile_options(mix)
     sync()
     phases["catalog"] = time.perf_counter() - t_start
-    order = mix["order"]
+    streams = mix.get("streams")
+    order = mix.get("order")
     for _ in range(mix["warmup_passes"]):
-        for qid in order:
-            compile_and_run(qid, catalog, cfg, **options)
+        if streams:
+            for k in range(len(streams[0])):
+                run_round([s[k % len(s)] for s in streams], catalog, cfg,
+                          options)
+        else:
+            for qid in order:
+                compile_and_run(qid, catalog, cfg, **options)
         sync()
     gc.collect()
     gc.freeze()
@@ -296,8 +429,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             prof.__enter__()
             marks = devtrace.Marks()
             marks.mark()
-    window_s, done, attempted, failed = drive(
-        order, seed % len(order), catalog, cfg, seconds, sync, options)
+    if streams:
+        window_s, done, attempted, failed = drive_streams(
+            streams, seed % len(streams[0]), catalog, cfg, seconds, sync,
+            options)
+    else:
+        window_s, done, attempted, failed = drive(
+            order, seed % len(order), catalog, cfg, seconds, sync, options)
     dev_trace = None
     if trace:
         if on_card:

@@ -17,7 +17,7 @@ MIXES = sorted((Path(harness.HERE) / "mixes").glob("*.json"))
 @pytest.mark.parametrize("path", MIXES, ids=lambda p: p.stem)
 def test_accessed_lists_are_the_compiled_plans(path):
     mix = json.loads(path.read_text())
-    assert sorted(mix["accessed"]) == sorted(mix["order"])
+    assert sorted(mix["accessed"]) == sorted(harness.queries_of(mix))
     for qid, tables in mix["accessed"].items():
         plans = compile_query(qid).plans
         assert {t: sorted(p.accessed_columns()) for t, p in plans.items()} \

@@ -18,7 +18,7 @@ CASES = [("tpch-sf10-wide-p1.join", q) for q in
 @pytest.fixture(scope="module")
 def cells():
     out = {}
-    for cell in {c for c, _ in CASES}:
+    for cell in {c for c, _ in CASES} | {"tpch-sf10-wide-p1.throughput"}:
         config, mix, _ = smallcell.small(cell)
         tables = harness.make_tables(config, 2 ** 31 + 1)
         out[cell] = (tables, harness.make_catalog(tables, config, "cpu"),
@@ -40,7 +40,8 @@ def test_reference_equals_the_program(cells, cell, qid):
 
 
 @pytest.mark.parametrize("cell", ["tpch-sf10-wide-p1.join",
-                                  "tpch-sf10-narrow-p01.scan"])
+                                  "tpch-sf10-narrow-p01.scan",
+                                  "tpch-sf10-wide-p1.throughput"])
 def test_the_float32_control_is_not_correct(cells, cell):
     tables, _, _, _, mix = cells[cell]
     worst, wrong, _ = control.readings(tables, mix)
