@@ -81,6 +81,17 @@ class RequestCost:
     def with_s_out(self, s_out: int) -> "RequestCost":
         return dataclasses.replace(self, s_out=int(max(64, s_out)))
 
+    def shuffled(self) -> "RequestCost":
+        """The cost of the same request with the §4.2 partition function
+        run storage-side: hashing and routing the rows add
+        ``SHUFFLE_ROUTE_FACTOR`` to the bytes the pushdown chews through."""
+        return dataclasses.replace(
+            self, compute_in=int(self.compute_in * SHUFFLE_ROUTE_FACTOR))
+
+
+# storage-side hash + route of a shuffled request (§4.2), on compute_in
+SHUFFLE_ROUTE_FACTOR = 1.05
+
 
 def cut_score(cost: RequestCost, res: StorageResources,
               has_operator_work: bool, cache_hit: bool = False) -> float:

@@ -27,7 +27,10 @@ none was published. With ``storage_tier="process"`` (or a
 node (``distributed.workers``), with the same results. With
 ``residual="tensor"`` (or ``"auto"`` above a calibrated row count) the
 residual runs as padded stage programs (``compiler.tensorize``), with
-the same results.
+the same results. With ``shuffle="storage"`` or ``"compute"`` the
+residual runs on ``num_compute_nodes`` compute nodes, the tables its
+joins need split by key routed to them (``core.cluster``), with the same
+results.
 
 Modes: no_pushdown / eager / adaptive / adaptive_pa (§6.2 baselines).
 """
@@ -39,7 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import optimum, runtime
+from repro_torch.core import cluster, optimum, runtime
 from repro_torch.core.arbitrator import MeasuredLoad
 from repro_torch.core.cost import (CardinalityCorrector, RequestCost,
                                    StorageResources)
@@ -132,6 +135,12 @@ class EngineConfig:
     # calibrated row crossover. The results are the same under every
     # backend
     residual: str = runtime.RESIDUAL_INTERPRETER
+    # cluster.SHUFFLE_MODES: "none" merges every table whole, one compute
+    # node's path; "storage" (shuffle pushdown) and "compute" (the Fig-15
+    # baseline) split each table of a query's shuffle_keys over the
+    # num_compute_nodes nodes, hashed while storage scans it or at compute,
+    # and the residual's joins run per node. The results are the same
+    shuffle: str = cluster.SHUFFLE_NONE
 
 
 @dataclasses.dataclass
@@ -167,6 +176,9 @@ class QueryRun:
     # observe and stage counts (None when the interpreter ran)
     residual_backend: str = "interpreter"
     residual_jit: Optional[Dict] = None
+    # the compute fabric's traffic (cluster.Exchange.as_dict()) on a run
+    # routed over compute nodes; None under shuffle="none"
+    exchange: Optional[Dict] = None
 
     @property
     def t_total(self) -> float:
@@ -236,27 +248,66 @@ def execute_requests(reqs: List[PlannedRequest],
     return runtime.execute_split(reqs, {}, executor=executor).merged
 
 
-def nonpushable_time(merged: Dict[str, ColumnTable], cfg: EngineConfig
-                     ) -> float:
+def nonpushable_time(merged: Dict[str, ColumnTable], cfg: EngineConfig,
+                     exchange: Optional[cluster.Exchange] = None) -> float:
     """Joins/final aggregation at the compute layer: input bytes over the
-    compute-node operator bandwidth."""
-    b = sum(t.nbytes(stored=False) for t in merged.values())
-    return b / (cfg.compute_bw * cfg.num_compute_nodes)
+    compute-node operator bandwidth, plus the redistribution of a run
+    routed over compute nodes (``Exchange.redistribution_time``)."""
+    b = sum(cluster.table_bytes(t) for t in merged.values())
+    t = b / (cfg.compute_bw * cfg.num_compute_nodes)
+    if exchange is not None:
+        t += exchange.redistribution_time(cfg.num_compute_nodes)
+    return t
+
+
+def check_unrouted(cfg: EngineConfig, what: str) -> None:
+    """Refuse a path that does not route over compute nodes."""
+    if cfg.shuffle != cluster.SHUFFLE_NONE:
+        raise ValueError(f"{what} does not split tables over compute "
+                         f"nodes: shuffle={cfg.shuffle!r} needs "
+                         f"shuffle={cluster.SHUFFLE_NONE!r}")
+
+
+def _routed(query, cfg: EngineConfig, requests, bitmaps):
+    """``(query, routing)``: the query as ``cfg.shuffle`` routes it
+    (``cluster.route_query``), after refusing what routing does not
+    carry."""
+    query, routing = cluster.route_query(query, cfg.shuffle,
+                                         cfg.num_compute_nodes)
+    if routing is None:
+        return query, None
+    refused = [
+        (requests is not None or bitmaps, "given requests or bitmaps"),
+        (cfg.result_cache is not None, "the result cache"),
+        (cfg.worker_pool is not None
+         or cfg.storage_tier not in (None, STORAGE_INPROC),
+         "the process tier"),
+        (cfg.residual != runtime.RESIDUAL_INTERPRETER,
+         f"the {cfg.residual!r} residual"),
+        (getattr(query, "residual", None) is None, "a hand-built query")]
+    for hit, what in refused:
+        if hit:
+            check_unrouted(cfg, what)
+    return query, routing
 
 
 def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
                  cfg: EngineConfig, t_pushable: float, net_bytes: float,
                  bitmaps: Optional[Dict[int, torch.Tensor]] = None,
-                 tier=None) -> QueryRun:
+                 tier=None, routing: Optional[cluster.Routing] = None
+                 ) -> QueryRun:
     """Execute the split ``sim`` decided for ``reqs`` (its storage side on
-    ``tier``'s workers when given), feed the corrector, run the residual
-    and reconcile the bytes."""
+    ``tier``'s workers when given; its tables split over compute nodes by
+    ``routing``), feed the corrector, run the residual and reconcile the
+    bytes."""
     tr = obs_trace.get_tracer()
+    exchange = cluster.Exchange() if routing is not None else None
     split = runtime.execute_split(reqs, sim.decisions(), bitmaps,
                                   executor=cfg.executor,
                                   cache=cfg.result_cache, faults=cfg.faults,
                                   retry=cfg.retry, breaker=cfg.breaker,
-                                  tier=tier)
+                                  tier=tier, routing=routing,
+                                  exchange=exchange)
     # one decision vector, two uses: every admitted request ran pushdown
     # or, its retries exhausted, was demoted to pushback
     admitted = sim.admitted(query.qid)
@@ -269,7 +320,7 @@ def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
     with tr.span("residual_compute", qid=query.qid,
                  backend=cfg.residual) as rsp:
         result, trun = runtime.run_residual(query, split.merged,
-                                            cfg.residual)
+                                            cfg.residual, exchange)
         if tr.enabled and trun is not None:
             tr.amend(rsp, backend="tensor", jit_hits=trun.jit_hits,
                      jit_misses=trun.jit_misses, fell_back=trun.fell_back)
@@ -289,20 +340,24 @@ def _run_decided(query, reqs: List[PlannedRequest], sim: SimResult,
         m.counter("engine.cache_hits").inc(n_hit)
     if split.n_demoted:
         m.counter("engine.requests.demoted").inc(split.n_demoted)
+    if exchange is not None:
+        exchange.publish()
     recovery = None
     if split.n_demoted or split.retries or split.faults_injected:
         recovery = {"n_demoted": split.n_demoted, "retries": split.retries,
                     "faults_injected": split.faults_injected}
     return QueryRun(
         qid=query.qid, result=result, sim=sim, t_pushable=t_pushable,
-        t_nonpushable=nonpushable_time(split.merged, cfg), requests=reqs,
+        t_nonpushable=nonpushable_time(split.merged, cfg, exchange),
+        requests=reqs,
         net_bytes=net_bytes, n_admitted=admitted,
         n_pushed_back=sim.pushed_back_by_query.get(query.qid, 0),
         real_net_bytes=split.real_net_bytes,
         net_bytes_recon=runtime.reconcile_net_bytes(sim, reqs, split),
         outcomes=split.outcomes, recovery=recovery,
         residual_backend=("tensor" if trun is not None else "interpreter"),
-        residual_jit=residual_jit)
+        residual_jit=residual_jit,
+        exchange=exchange.as_dict() if exchange is not None else None)
 
 
 def _set_query_attrs(qs, run: QueryRun) -> None:
@@ -314,6 +369,8 @@ def _set_query_attrs(qs, run: QueryRun) -> None:
            t_pushable=run.t_pushable, t_nonpushable=run.t_nonpushable,
            s_out_est_ratio=recon.get("s_out_estimate_ratio"),
            cache_hits=run.cache_hits, net_bytes_recon=recon)
+    if run.exchange is not None:
+        qs.set(exchange=run.exchange)
 
 
 def _check_catalog(catalog: Catalog, cfg: EngineConfig) -> None:
@@ -333,19 +390,25 @@ def run_query(query, catalog: Catalog, cfg: EngineConfig,
     (the GPU unless it says ``"cpu"``), which must hold the catalog.
     ``requests`` replaces the planned requests (e.g. recosted by
     ``core.bitmap.rewrite_all``); ``bitmaps`` maps request ids to the
-    packed words their ``apply_bitmap`` plans filter with."""
+    packed words their ``apply_bitmap`` plans filter with. Under
+    ``cfg.shuffle`` other than ``"none"`` a request of a plan that hashes
+    at storage is costed with it (``RequestCost.shuffled``)."""
     _check_catalog(catalog, cfg)
+    query, routing = _routed(query, cfg, requests, bitmaps)
     tr = obs_trace.get_tracer()
     with tr.span("query", qid=query.qid, mode=cfg.mode) as qs:
         reqs = requests if requests is not None else plan_requests(
             query, catalog, corrector=cfg.corrector, cache=cfg.result_cache)
+        if routing is not None and routing.at_storage:
+            reqs = [dataclasses.replace(r, cost=r.cost.shuffled())
+                    if r.table in routing.keys else r for r in reqs]
         sim = simulate([SimRequest(r.req_id, r.part.node_id, query.qid,
                                    r.cost) for r in reqs],
                        cfg.res, cfg.mode, measured=_measured_of(cfg),
                        breaker=cfg.breaker)
         run = _run_decided(query, reqs, sim, cfg, sim.makespan,
                            sim.net_bytes, bitmaps,
-                           tier=resolve_tier(cfg, catalog))
+                           tier=resolve_tier(cfg, catalog), routing=routing)
         if tr.enabled:
             _set_query_attrs(qs, run)
     return run
@@ -358,6 +421,7 @@ def run_concurrent(queries, catalog: Catalog, cfg: EngineConfig
     simulation, then each query runs its decided split, finishing at its
     last request."""
     _check_catalog(catalog, cfg)
+    check_unrouted(cfg, "run_concurrent")
     all_reqs: List[PlannedRequest] = []
     for q in queries:
         all_reqs.extend(plan_requests(q, catalog, start_id=len(all_reqs),

@@ -396,18 +396,9 @@ class CompiledPushPlan:
         key, n_t = self.plan.shuffle
         if pids is None:
             pids, _ = hpk.hash_partition(out.cols[key], n_t)
-        n_parts = len(aux)
-        dev = pids.device
-        seg = _segments(bounds, dev)
-        code, order = torch.sort(seg * n_t + pids, stable=True)
-        sorted_cols = {c: gather(v, order) for c, v in out.cols.items()}
-        cuts = torch.searchsorted(
-            code, torch.arange(n_parts * n_t + 1, device=dev)).tolist()
-        for p, a in enumerate(aux):
-            a["shuffle_parts"] = [
-                ColumnTable({c: v[cuts[p * n_t + i]:cuts[p * n_t + i + 1]]
-                             for c, v in sorted_cols.items()})
-                for i in range(n_t)]
+        for p, (a, pieces) in enumerate(zip(aux, slices_by_target(
+                out, bounds, pids, n_t))):
+            a["shuffle_parts"] = pieces
             a["position_vector"] = pids[bounds[p]:bounds[p + 1]]
 
     def _top_k_rows(self, v: torch.Tensor, part_of: torch.Tensor,
@@ -504,6 +495,24 @@ class CompiledPushPlan:
                                 as_float64(v))
             out[name] = v
         return ColumnTable(out)
+
+
+def slices_by_target(out: ColumnTable, bounds: Sequence[int],
+                     pids: torch.Tensor, n_t: int) -> List[List[ColumnTable]]:
+    """Each segment of ``out`` (rows cut at ``bounds``) split into its
+    ``n_t`` per-target slices: one stable sort by ``(segment, target)``,
+    so each slice is exactly the rows ``pids == target`` selects in the
+    segment, in row order."""
+    n_parts = len(bounds) - 1
+    dev = pids.device
+    seg = _segments(bounds, dev)
+    code, order = torch.sort(seg * n_t + pids, stable=True)
+    sorted_cols = {c: gather(v, order) for c, v in out.cols.items()}
+    cuts = torch.searchsorted(
+        code, torch.arange(n_parts * n_t + 1, device=dev)).tolist()
+    return [[ColumnTable({c: v[cuts[p * n_t + i]:cuts[p * n_t + i + 1]]
+                          for c, v in sorted_cols.items()})
+             for i in range(n_t)] for p in range(n_parts)]
 
 
 def _segments(bounds: Sequence[int], device) -> torch.Tensor:

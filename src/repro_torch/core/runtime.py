@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import cluster
 from repro_torch.core import faults as _faults
 from repro_torch.core.arbitrator import PUSHBACK, PUSHDOWN
 from repro_torch.core.cost import CardinalityCorrector
@@ -75,18 +76,27 @@ RESIDUALS = (RESIDUAL_INTERPRETER, RESIDUAL_TENSOR, RESIDUAL_AUTO)
 
 
 def run_residual(query, merged: Dict[str, ColumnTable],
-                 backend: str = RESIDUAL_INTERPRETER):
+                 backend: str = RESIDUAL_INTERPRETER, exchange=None):
     """Evaluate ``query``'s residual over the merged per-table results.
 
     Returns ``(table, info)``: ``info`` is None on the interpreter path
     and a ``tensorize.TensorRun`` (program-cache hits and misses, fallback
     and observe accounting) on the tensor path. A query with no residual
     IR (the hand-built ones) runs its ``compute`` closure under every
-    backend: the tensor backend needs the IR."""
+    backend: the tensor backend needs the IR. With an ``exchange`` (a
+    ``core.cluster.Exchange``: some merged tables are split over compute
+    nodes) the interpreter runs the residual per node and counts the
+    compute fabric's bytes into it."""
     if backend is not None and backend not in RESIDUALS:
         raise ValueError(f"unknown residual backend {backend!r}; "
                          f"expected one of {RESIDUALS}")
     residual = getattr(query, "residual", None)
+    if exchange is not None:
+        if residual is None or backend not in (None, RESIDUAL_INTERPRETER):
+            raise ValueError("a residual over compute nodes needs the "
+                             "compiled IR and the interpreter")
+        from repro_torch.compiler import interpreter  # deferred: a cycle
+        return interpreter.run(residual, merged, exchange), None
     if residual is None or backend in (None, RESIDUAL_INTERPRETER):
         return query.compute(merged), None
     from repro_torch.compiler import tensorize  # deferred: a cycle
@@ -360,7 +370,8 @@ def execute_split(reqs, decisions: Dict[int, str],
                   bitmaps: Optional[Dict[int, torch.Tensor]] = None,
                   executor: str = EXECUTOR_BATCHED, cache=None,
                   faults=None, retry=None, breaker=None,
-                  tier=None) -> SplitExecution:
+                  tier=None, routing=None,
+                  exchange=None) -> SplitExecution:
     """Route every request down its decided path and merge.
 
     ``reqs`` are ``engine.PlannedRequest``s; ``decisions`` maps
@@ -381,9 +392,20 @@ def execute_split(reqs, decisions: Dict[int, str],
     runs the storage side in its worker processes: groups split per node
     (each worker holds its node's partitions), the recovery loop is armed
     so that a real worker fault retries and demotes, and the cache is
-    bypassed (the workers hold the storage side)."""
+    bypassed (the workers hold the storage side).
+
+    ``routing`` (a ``core.cluster.Routing``) splits each of its tables
+    over the compute nodes in place of the merge: the merged value is a
+    ``core.cluster.Partitioned``, and ``exchange`` (a
+    ``core.cluster.Exchange``) counts the rows routed at compute. A
+    pushed-back request of a plan that hashes at storage is replayed
+    without the partition function, then routed. Routing runs neither
+    with a fault plan nor on a tier."""
     if faults is None:
         faults = _faults.env_plan()
+    if routing is not None and (faults is not None or tier is not None):
+        raise ValueError("a split routed over compute nodes runs neither "
+                         "under a fault plan nor on a storage tier")
     recovered = faults is not None or tier is not None
     if recovered and retry is None:
         retry = _faults.RetryPolicy()
@@ -400,6 +422,7 @@ def execute_split(reqs, decisions: Dict[int, str],
             gkey = (r.table, id(r.plan)) if not recovered \
                 else (r.table, id(r.plan), r.part.node_id)
             groups.setdefault(gkey, []).append(r)
+        aux_of: Dict[int, Dict] = {}
         for rs in groups.values():
             cplan = compile_push_plan(rs[0].plan)
             for path in (PUSHDOWN, PUSHBACK):
@@ -407,6 +430,11 @@ def execute_split(reqs, decisions: Dict[int, str],
                        if decisions.get(r.req_id, PUSHDOWN) == path]
                 if not sub:
                     continue
+                if path == PUSHBACK and routing is not None \
+                        and cplan.plan.shuffle is not None:
+                    # raw at the compute layer: replayed, then routed
+                    cplan = compile_push_plan(dataclasses.replace(
+                        cplan.plan, shuffle=None))
                 rec = None
                 if not recovered:
                     out, gsp = _exec_group_traced(
@@ -426,6 +454,8 @@ def execute_split(reqs, decisions: Dict[int, str],
                 g_bytes = 0
                 for r, (res, aux) in zip(sub, out):
                     per_req[r.req_id] = res
+                    if routing is not None:
+                        aux_of[r.req_id] = aux
                     if eff_path == PUSHDOWN:
                         b = result_bytes(res, aux)
                         pd_bytes += b
@@ -447,9 +477,15 @@ def execute_split(reqs, decisions: Dict[int, str],
         by_table: Dict[str, List[ColumnTable]] = {}
         for r in reqs:
             by_table.setdefault(r.table, []).append(per_req[r.req_id])
-        with tr.span("merge", tables=sorted(by_table)):
+        routed = routing.keys if routing is not None else {}
+        with tr.span("merge", tables=sorted(set(by_table) - set(routed))):
             merged = {t: ColumnTable.concat(parts)
-                      for t, parts in by_table.items()}
+                      for t, parts in by_table.items() if t not in routed}
+        for t, key in routed.items():
+            merged[t] = cluster.assemble(
+                t, key, routing.n,
+                [(r.part.index, per_req[r.req_id], aux_of[r.req_id])
+                 for r in reqs if r.table == t], exchange)
         outs = [out_by_id[r.req_id] for r in reqs]
         if tr.enabled:
             es.set(n_pushdown=n_pd, n_pushback=n_pb,
@@ -609,6 +645,7 @@ def run_stream(stream: Sequence[StreamQuery], catalog, cfg,
     """
     from repro_torch.core import engine as _engine  # engine imports us
     _engine._check_catalog(catalog, cfg)
+    _engine.check_unrouted(cfg, "run_stream")
     tr = obs_trace.get_tracer()
     with tr.span("run_stream", mode=cfg.mode,
                  n_queries=len(stream)) as stream_span:

@@ -21,6 +21,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.cluster import COMPUTE_NET_BW, PARTITION_BW
 from repro_torch.core.engine import EngineConfig, PlannedRequest, plan_requests
 from repro_torch.core.executor import compile_push_plan
 from repro_torch.core.plan import PushPlan
@@ -35,8 +36,8 @@ from repro_torch.storage.catalog import Catalog
 @dataclasses.dataclass
 class ShuffleConfig:
     num_compute_nodes: int = 4
-    compute_net_bw: float = 1.25e9  # 10 Gbps NICs (the paper's r5.4xlarge)
-    partition_bw: float = 2.4e9     # compute-node partition/serialize rate
+    compute_net_bw: float = COMPUTE_NET_BW  # 10 Gbps NICs (r5.4xlarge)
+    partition_bw: float = PARTITION_BW      # compute-node partition rate
     buffer_bytes: int = 256 << 20   # bounded pull buffer at storage (§4.2)
     position_vector: bool = True    # cached-column interop variant
 
@@ -84,8 +85,7 @@ def run_shuffle(query: Query, catalog: Catalog, cfg: EngineConfig,
     for r in reqs:
         cost = r.cost
         if pushdown and r.table in query.shuffle_keys:
-            cost = dataclasses.replace(
-                cost, compute_in=int(cost.compute_in * 1.05))  # hash+route
+            cost = cost.shuffled()
         sim_reqs.append(SimRequest(r.req_id, r.part.node_id, query.qid, cost))
     sim = simulate(sim_reqs, cfg.res, "eager")
 

@@ -27,6 +27,15 @@ tracing is on (``record_filter_decision``), and counts them in the
 Span attributes hold host values: a tensor attribute of more than one
 element would make an exporter copy it off the device.
 
+A run over a compute cluster (``core.cluster``) adds a ``route`` span
+(cat ``shuffle``: ``table``, ``nodes``, ``rows_routed``, ``rows``) a
+routed table under ``execute_split``, a ``gather`` span (cat ``shuffle``:
+``nodes``, ``rows``, ``bytes``) each time the residual collects a table's
+slices on node 0, and a ``node`` attribute on the ``op.*`` spans of the
+operators that run once a node; its ``shuffle.routed_rows``,
+``shuffle.redistributed_bytes``, ``shuffle.broadcast_bytes`` and
+``shuffle.gather_bytes`` counters are added once a query, traced or not.
+
 While an enabled tracer is installed (``set_tracer``), three hooks hear
 what no span brackets: every garbage collection is a closed ``gc`` span
 (cat ``host``, ``generation``, ``collected``) under the thread's current

@@ -1,14 +1,16 @@
 """The spans the port's tracer records and the JAX package's does not, so
 that a comparison of span trees with the reference leaves them out:
 the residual interpreter's ``op.*`` spans, ``gc`` spans, ``device_sync``
-events and the uncosted compiler's ``compile`` span (the reference opens
-``compile`` on the costed path only)."""
+events, the uncosted compiler's ``compile`` span (the reference opens
+``compile`` on the costed path only) and a compute cluster's ``route``
+and ``gather`` spans."""
 import contextlib
 import gc
 
 
 def port_only(name, attrs) -> bool:
-    return (name.startswith("op.") or name in ("gc", "device_sync")
+    return (name.startswith("op.")
+            or name in ("gc", "device_sync", "route", "gather")
             or (name == "compile" and attrs.get("costed") is False))
 
 

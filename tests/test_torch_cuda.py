@@ -634,6 +634,47 @@ def test_engine_on_the_card_matches_the_cpu(cuda, catalogs, qid):
             assert g.real_net_bytes == c.real_net_bytes
 
 
+@pytest.mark.parametrize("shuffle", ("storage", "compute"))
+def test_a_cluster_on_the_card_matches_the_cpu(cuda, catalogs, shuffle):
+    """The join queries over 4 compute nodes: each node's table bitwise, the
+    answers, decisions, shipped bytes and the fabric's bytes as on the
+    CPU, and as the single-node path's answers; the shuffle kernels run on
+    the card."""
+    from repro_torch import compiler
+    from repro_torch.core import cluster, runtime
+    from repro_torch.core.engine import compile_and_run
+    gpu, cpu = catalogs
+    for qid in ("Q3", "Q5", "Q7", "Q8", "Q10", "Q18"):
+        for power in (1.0, 0.1):
+            res = StorageResources(storage_power=power)
+            runs, tables = [], []
+            for cat, dev in ((gpu, cuda), (cpu, "cpu")):
+                kernels.reset_launches()
+                run = compile_and_run(qid, cat, EngineConfig(
+                    res=res, device=dev, num_compute_nodes=4,
+                    shuffle=shuffle))
+                if dev is cuda:
+                    n = kernels.launches()
+                    assert n["hash_partition"] + n["fused_scan_shuffle"] > 0
+                routing = cluster.route_query(compiler.compile_query(qid),
+                                              shuffle, 4)[1]
+                tables.append(runtime.execute_split(
+                    run.requests, run.sim.decisions(), routing=routing,
+                    exchange=cluster.Exchange()).merged)
+                runs.append(run)
+            g, c = runs
+            assert results_equal(g.result, c.result, tol=1e-9)
+            assert g.sim.decisions() == c.sim.decisions()
+            assert g.real_net_bytes == c.real_net_bytes
+            assert g.exchange == c.exchange
+            for t in ("lineitem", "orders"):
+                for gs, cs in zip(tables[0][t].slices, tables[1][t].slices):
+                    assert _same(gs, cs), (qid, t)
+            one = compile_and_run(qid, gpu, EngineConfig(res=res,
+                                                         device=cuda))
+            assert results_equal(g.result, one.result, tol=1e-9)
+
+
 def _to_cpu(t):
     return {c: v.cpu() for c, v in t.cols.items()}
 

@@ -867,6 +867,55 @@ def test_query_residual_spans_sit_under_residual_compute(cats):
     assert ops_[-1].attrs["rows_out"] == len(run.result)
 
 
+def test_a_cluster_traces_routing_gathers_and_nodes(cats):
+    """Under a 4-node cluster with shuffle pushdown: one ``route`` span a
+    routed table, each join of two routed tables once a node, gathers to
+    node 0 before the aggregate, and the query span carries the fabric's
+    bytes."""
+    from repro_torch.core import cluster
+    cat, _ = cats
+    cfg = _cfg(power=0.1, num_compute_nodes=4, shuffle="storage")
+    with tracing() as tr:
+        run = engine.compile_and_run("Q3", cat, cfg)
+    routes = tr.find("route")
+    assert sorted(s.attrs["table"] for s in routes) == ["lineitem", "orders"]
+    (split,) = tr.find("execute_split")
+    assert all(s.parent == split.sid and s.cat == "shuffle"
+               and s.attrs["nodes"] == 4 for s in routes)
+    assert sum(s.attrs["rows_routed"] for s in routes) \
+        == run.exchange["routed_rows"] > 0
+    joins = tr.find("op.join")
+    assert sorted(s.attrs["node"] for s in joins) == [0, 0, 1, 1, 2, 2, 3, 3]
+    gathers = tr.find("gather")
+    assert gathers and all(s.cat == "shuffle" for s in gathers)
+    assert sum(s.attrs["bytes"] for s in gathers) \
+        == run.exchange["gather_bytes"]
+    (agg,) = tr.find("op.aggregate")
+    assert "node" not in agg.attrs
+    (q,) = tr.find("query")
+    assert q.attrs["exchange"] == run.exchange
+    assert set(run.exchange) >= {n.split(".", 1)[1]
+                                 for n in cluster.COUNTERS}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_cluster_counts_its_fabric_once_a_query(cats, registries, traced):
+    """The ``shuffle.*`` counters add each query's ``exchange``, traced or
+    not, and the tracer hands them back for its window."""
+    from repro_torch.core import cluster
+    cat, _ = cats
+    m, _ = registries
+    cfg = _cfg(power=0.1, num_compute_nodes=4, shuffle="compute")
+    with (tracing() if traced else contextlib.nullcontext()):
+        runs = [engine.compile_and_run(q, cat, cfg) for q in ("Q3", "Q10")]
+    c = m.snapshot()["counters"]
+    for name in cluster.COUNTERS:
+        field = name.split(".", 1)[1]
+        assert c[name] == sum(r.exchange[field] for r in runs) > 0
+        if traced:
+            assert trace.last_counters()[name] == c[name]
+
+
 def _sim_requests():
     """Two equal pushback requests at 0 on one node, a third at 1 s: each
     batch drains its disk stage, then its net stage, together."""
