@@ -10,7 +10,7 @@ GPU is present. Phases:
 1. Card and build: prints the card's name and power limit, then builds the
    CUDA kernels (``repro_torch.kernels._build``, one nvcc per source, in
    parallel) from ``src/``.
-2. Kernels: holds each of the six CUDA kernels against its plain torch
+2. Kernels: holds each of the eight CUDA kernels against its plain torch
    version on the card, at the shapes the main path gives it (60M
    lineitem rows), and times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call, with CUDA events.
@@ -31,7 +31,11 @@ GPU is present. Phases:
    route. ``fused_scan_shuffle`` runs Q3's and Q19's predicates, Q19's
    also with int64 keys and on one partition's view from its row 1, and
    prints each launch's blocks, stages, shared bytes and whether its
-   pooled lists were staged in shared memory.
+   pooled lists were staged in shared memory. ``join_probe`` and
+   ``join_expand`` (bitwise) run ``l_orderkey`` (60M rows) into orders'
+   15M sorted keys as ``hash_join`` builds them, then into every other
+   key (counts 0 and 1), and the whole ``join_pairs`` is timed beside the
+   ``searchsorted``/``repeat_interleave`` chain it replaced.
 3. Engine: builds the TPC-H catalog at ``SF`` = 1000 (TPC-H SF10's row
    counts: 60M lineitem rows in 100 partitions over 4 storage nodes)
    on the card and runs all 15 queries through
@@ -131,7 +135,7 @@ GPU is present. Phases:
    Chrome trace (in a temporary directory) under ``torch.profiler``: each
    span name's self time (``span_attribution``), the device's busy time
    and idle share (``1 - busy / wall``) over the same window; then the
-   stream untraced and traced three times each, ``gc.collect()`` before
+   stream untraced and traced twice each, ``gc.collect()`` before
    every run, and their medians.
 12. Process tier: one spawned storage-worker process per node (4), each
    holding its node's partitions on the card (shipped over the wire
@@ -358,14 +362,21 @@ REPLACES = {"predicate_bitmap": "src/repro/kernels/predicate_bitmap.py:42",
             "grouped_agg": "src/repro/kernels/grouped_agg.py:48",
             "bitmap_apply": "src/repro/kernels/bitmap_apply.py:34",
             "hash_partition": "src/repro/kernels/hash_partition.py:38",
-            "fused_scan_shuffle": "src/repro/kernels/fused_scan_shuffle.py:62"}
+            "fused_scan_shuffle": "src/repro/kernels/fused_scan_shuffle.py:62",
+            # no TPU kernel: the JAX package's hash_join expands on the host
+            "join_probe": "none (src/repro/queryproc/operators.py "
+                          "hash_join, np.repeat on the host)",
+            "join_expand": "none (src/repro/queryproc/operators.py "
+                           "hash_join, np.repeat on the host)"}
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"predicate_bitmap": _CSRC + "predicate_bitmap.cu",
            "fused_scan_agg": _CSRC + "fused_scan_agg.cu",
            "grouped_agg": _CSRC + "grouped_agg.cu",
            "bitmap_apply": _CSRC + "bitmap_apply.cu",
            "hash_partition": _CSRC + "shuffle.cu",
-           "fused_scan_shuffle": _CSRC + "shuffle.cu"}
+           "fused_scan_shuffle": _CSRC + "shuffle.cu",
+           "join_probe": _CSRC + "join_expand.cu",
+           "join_expand": _CSRC + "join_expand.cu"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -719,7 +730,100 @@ def kernel_phase(cat, timer):
     del out, got, keys64
     lines += pooled_in_records(li, seg, n_parts, timer)
     split_route_check(cat)
+    probe, expand, joins = join_records(cat, li["l_orderkey"], timer)
+    records["join_probe"], records["join_expand"] = probe, expand
+    lines += joins
     return records, lines
+
+
+def join_records(cat, l_orderkey, timer):
+    """``join_probe`` and ``join_expand`` held bitwise to their plain
+    versions and timed at the main path's shape, ``l_orderkey`` (every
+    lineitem row) probing orders' sorted ``o_orderkey`` as ``hash_join``
+    builds it; then the same into every other order key (counts 0 and 1)
+    and the whole ``join_pairs`` (probe, scan, one host read, expand)
+    beside the torch chain it replaced. Returns (probe record, expand
+    record, extra records)."""
+    import numpy as np
+    from repro_torch.kernels import join_expand as je
+    from repro_torch.queryproc.operators import key_in
+    from repro_torch.queryproc.table import as_int64, gather, sort_key
+
+    rv = cat.scan_table("orders", ["o_orderkey"]).cols["o_orderkey"]
+    lk = as_int64(l_orderkey)
+
+    def chain(rv_sorted, r_order):
+        """``hash_join``'s match-and-expand before the two kernels."""
+        lo = torch.searchsorted(rv_sorted, lk)
+        counts = torch.searchsorted(rv_sorted, lk, right=True) - lo
+        l_idx = torch.repeat_interleave(
+            torch.arange(len(lk), device=lk.device), counts)
+        offs = torch.cumsum(counts, 0) - counts
+        return l_idx, r_order[torch.arange(len(l_idx), device=lk.device)
+                              - torch.repeat_interleave(offs - lo, counts)]
+
+    def plain_pairs(rv_sorted, r_order):
+        lo, cnt = je.plain_probe(rv_sorted, lk)
+        ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+        return je.plain_expand(lo, ends, r_order, int(ends[-1]))
+
+    out, lines = {}, []
+    for case, right in (("orders", rv), ("every other order key", rv[::2])):
+        r_order = torch.sort(sort_key(right), stable=True).indices
+        rv_sorted = key_in(gather(right, r_order), np.dtype(np.int32))
+        lo, cnt = je.join_probe(rv_sorted, lk)
+        plo, pcnt = je.plain_probe(rv_sorted, lk)
+        check(torch.equal(lo, plo) and torch.equal(cnt, pcnt),
+              f"join_probe {case}: lo or cnt differ")
+        ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+        n_out = int(ends[-1])
+        pairs = je.join_expand(lo, ends, r_order, n_out)
+        plain = je.plain_expand(lo, ends, r_order, n_out)
+        check(all(torch.equal(a, b) for a, b in zip(pairs, plain)),
+              f"join_expand {case}: l_idx or r_idx differ")
+        check(all(torch.equal(a, b) for a, b in zip(pairs, chain(
+            rv_sorted, r_order))), f"join_expand {case}: the torch chain "
+              f"gives other pairs")
+        R, n_right = lk.shape[0], rv_sorted.shape[0]
+        matched = int((cnt > 0).sum())
+        shape = (f"l_orderkey into {case}, R={R}, right={n_right}, "
+                 f"pairs={n_out}")
+        # the probe reads the keys once each and writes 12 B a left row;
+        # the expansion reads ends, lo of the matched rows and the r_order
+        # entries it gathers once each, and writes 16 B a pair
+        b_ms, b_by = bound(nbytes(lk, rv_sorted, lo, cnt), R)
+        probe = dict(
+            name="join_probe", max_abs_err=0.0,
+            ms=timer(lambda: je.join_probe(rv_sorted, lk)),
+            plain_ms=timer(lambda: je.plain_probe(rv_sorted, lk)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer(lambda: (torch.searchsorted(rv_sorted, lk),
+                                      torch.searchsorted(rv_sorted, lk,
+                                                         right=True))),
+            shape=shape)
+        b_ms, b_by = bound(nbytes(ends) + 8 * matched
+                           + 8 * min(n_out, n_right) + 16 * n_out, n_out)
+        expand = dict(
+            name="join_expand", max_abs_err=0.0,
+            ms=timer(lambda: je.join_expand(lo, ends, r_order, n_out)),
+            plain_ms=timer(lambda: je.plain_expand(lo, ends, r_order, n_out)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape)
+        b_all, b_by = bound(nbytes(lk, rv_sorted) + 8 * min(n_out, n_right)
+                            + 16 * n_out, n_out)
+        whole = dict(
+            name="join_expand", max_abs_err=0.0,
+            ms=timer(lambda: je.join_pairs(rv_sorted, r_order, lk)),
+            plain_ms=timer(lambda: plain_pairs(rv_sorted, r_order)),
+            bound_ms=b_all, bound_by=b_by,
+            library_ms=timer(lambda: chain(rv_sorted, r_order)),
+            shape=f"join_pairs (probe, cumsum, host read, expand), {shape}")
+        if out:
+            lines += [probe, expand]
+        else:
+            out = dict(probe=probe, expand=expand)
+        lines.append(whole)
+        del lo, cnt, plo, pcnt, ends, pairs, plain
+    return out["probe"], out["expand"], lines
 
 
 def held_shuffle(prog, cols, keys, P, case):
@@ -4360,9 +4464,9 @@ def main() -> int:
     streamed = stream_phase(cat, torch.cuda.synchronize, smi[0])
     print(f"stream phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    # three untraced and three traced streams, not five each: the narrow
-    # phase and its kernels' build took that time
-    traced = trace_phase(cat, torch.cuda.synchronize, smi[0], repeats=3)
+    # two untraced and two traced streams, not five each: the narrow phase,
+    # its kernels' build and the join kernels' records took that time
+    traced = trace_phase(cat, torch.cuda.synchronize, smi[0], repeats=2)
     print(f"trace phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     tiered = tier_phase(cat, torch.cuda.synchronize, smi[0])

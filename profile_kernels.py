@@ -2,8 +2,8 @@
 """Time the alternatives of the redesigned kernels on one GPU.
 
     python3 profile_kernels.py {grouped_agg,predicate_bitmap,fused_scan_agg,
-                                bitmap_apply,fused_scan_shuffle,engine,
-                                cache,residual,jitter} [--seed 0]
+                                bitmap_apply,fused_scan_shuffle,join,
+                                engine,cache,residual,jitter} [--seed 0]
                                [--repeats 5]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
@@ -44,6 +44,12 @@ Prints the card's name and power limit.
   ``In`` lists, chip_smoke's 512-value ``In`` on ``l_partkey``, each
   beside its bytes bound and with the launch's grid, ring and shared
   memory where the wrapper reports them.
+- ``join``: on the same catalog, chip_smoke's ``join_records`` (every
+  ``l_orderkey`` probing orders' sorted keys, then every other key:
+  ``join_probe``, ``join_expand`` and the whole ``join_pairs`` beside the
+  torch chain it replaced, each held bitwise first), then the device time
+  of each kernel of one ``join_pairs`` call (``torch.profiler``) and the
+  same call with one key matching 10^6 right rows.
 - ``engine``: on the same catalog, the wall time of Q1, Q3, Q6, Q12 and
   Q19 in chip_smoke's four configurations, each run once untimed and then
   ``--repeats`` times: first through the hand-built plans
@@ -386,6 +392,35 @@ def time_fused_scan_shuffle(dev, seed):
               f"ops: ms={ms:.4f} bound_ms={b_ms:.4f} launch={launch}")
 
 
+def time_join(dev, seed):
+    from chip_smoke import check, cuda_ms, join_records, print_records
+    from repro_torch.kernels import join_expand as je
+    from repro_torch.queryproc.operators import key_in
+    from repro_torch.queryproc.table import as_int64, gather, sort_key
+    import numpy as np
+
+    cat = lineitem_catalog(dev, seed)
+    lk = cat.scan_table("lineitem", ["l_orderkey"]).cols["l_orderkey"]
+    probe, expand, lines = join_records(cat, lk, cuda_ms)
+    print_records([probe, expand, *lines], [])
+    rv = cat.scan_table("orders", ["o_orderkey"]).cols["o_orderkey"]
+    skewed = torch.cat([rv, torch.full((1_000_000,), int(rv[0]),
+                                       dtype=rv.dtype, device=dev)])
+    lk = as_int64(lk)
+    for case, right in (("orders", rv), ("one key 10^6 times more", skewed)):
+        r_order = torch.sort(sort_key(right), stable=True).indices
+        rv_sorted = key_in(gather(right, r_order), np.dtype(np.int32))
+        got = je.join_pairs(rv_sorted, r_order, lk)
+        lo, cnt = je.plain_probe(rv_sorted, lk)
+        ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+        want = je.plain_expand(lo, ends, r_order, int(ends[-1]))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), case)
+        ms = cuda_ms(lambda: je.join_pairs(rv_sorted, r_order, lk))
+        print(f"join_pairs {case} R={lk.shape[0]} pairs={got[0].shape[0]}: "
+              f"ms={ms:.4f}; "
+              f"{profile(lambda: je.join_pairs(rv_sorted, r_order, lk))}")
+
+
 def time_engine(dev, seed, repeats):
     from chip_smoke import CONFIGS
     from repro_torch.core import engine as eng
@@ -673,8 +708,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("grouped_agg", "predicate_bitmap",
                                        "fused_scan_agg", "bitmap_apply",
-                                       "fused_scan_shuffle", "engine",
-                                       "cache", "residual", "jitter"))
+                                       "fused_scan_shuffle", "join",
+                                       "engine", "cache", "residual",
+                                       "jitter"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=5,
                     help="timed runs a configuration (engine, cache, "
@@ -698,6 +734,8 @@ def main() -> int:
         time_bitmap_apply(dev, args.seed)
     elif args.kernel == "fused_scan_shuffle":
         time_fused_scan_shuffle(dev, args.seed)
+    elif args.kernel == "join":
+        time_join(dev, args.seed)
     elif args.kernel == "engine":
         time_engine(dev, args.seed, args.repeats)
     elif args.kernel == "cache":

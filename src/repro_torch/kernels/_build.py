@@ -23,7 +23,7 @@ from repro_torch.kernels._launch import KernelError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("predicate_bitmap", "fused_scan_agg", "grouped_agg", "bitmap_apply",
-           "shuffle")
+           "shuffle", "join_expand")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -51,6 +51,12 @@ SIGNATURES = {
         # info
         "fused_scan_shuffle_launch": _PROG + [_P, _P, _I, _LL, _I, _P, _P, _P,
                                               _I, _P, _P]},
+    "join_expand": {  # rv, n_right, lk, n_left, lo, cnt, sms, stream
+        "join_probe_launch": [_P, _LL, _P, _LL, _P, _P, _I, _P],
+        "join_expand_items_per_block": [],
+        # ends, lo, r_order, n_left, n_out, parts, n_parts, l_idx, r_idx,
+        # stream
+        "join_expand_launch": [_P, _P, _P, _LL, _LL, _P, _LL, _P, _P, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -16,10 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import grouped_agg as gak
+from repro_torch.kernels import join_expand as jek
 from repro_torch.kernels import predicate_bitmap as pbk
 from repro_torch.kernels.program import program_for
 from repro_torch.kernels.ref import (hash_partition_ids, pack_bitmap,  # noqa: F401
                                      unpack_bitmap)
+from repro_torch.obs.metrics import get_metrics
 from repro_torch.queryproc import expressions as ex
 from repro_torch.queryproc.table import (NP_OF, ColumnTable, as_float64,
                                          as_int64, float_key, from_key,
@@ -252,21 +254,21 @@ def key_in(v: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
 def hash_join(left: ColumnTable, right: ColumnTable, lkey: str, rkey: str
               ) -> ColumnTable:
     """Inner equi-join as numpy's: a stable argsort of the right keys, then
-    ``searchsorted`` in the two keys' common dtype (int32 against uint64
-    meets in float64), NaN matching NaN; left rows in order, each with its
-    matches in right-key order."""
+    each left key's matches among them in the two keys' common dtype (int32
+    against uint64 meets in float64), NaN matching NaN; left rows in order,
+    each with its matches in right-key order. The pairs come from
+    ``kernels.join_expand.join_pairs`` (one host wait); the counters
+    ``join.probe_rows`` and ``join.out_rows`` add the left rows and the
+    pairs."""
     lv, rv = left.cols[lkey], right.cols[rkey]
     common = np.result_type(NP_OF[lv.dtype], NP_OF[rv.dtype])
     r_order = torch.sort(sort_key(rv), stable=True).indices
     rv_sorted = key_in(gather(rv, r_order), common)
-    lk = key_in(lv, common)
-    lo = torch.searchsorted(rv_sorted, lk)
-    counts = torch.searchsorted(rv_sorted, lk, right=True) - lo
-    l_idx = torch.repeat_interleave(
-        torch.arange(len(lv), device=lv.device), counts)
-    offs = torch.cumsum(counts, 0) - counts
-    r_idx = r_order[torch.arange(len(l_idx), device=lv.device)
-                    - torch.repeat_interleave(offs - lo, counts)]
+    l_idx, r_idx = jek.join_pairs(rv_sorted.contiguous(), r_order,
+                                  key_in(lv, common).contiguous())
+    m = get_metrics()
+    m.counter("join.probe_rows").inc(len(lv))
+    m.counter("join.out_rows").inc(len(l_idx))
     out = {k: gather(v, l_idx) for k, v in left.cols.items()}
     for k, v in right.cols.items():
         if k != rkey or lkey != rkey:

@@ -6,7 +6,8 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Bitmaps, pids, histograms, masked columns and counts must match bitwise.
+Bitmaps, pids, histograms, masked columns, counts and the join kernels'
+bounds, counts and row pairs must match bitwise.
 Sums accumulate in f64 in both versions, in an atomic order on the card,
 so they are held to rtol=1e-9.
 """
@@ -26,12 +27,15 @@ from repro_torch.kernels import fused_scan_agg as fsa
 from repro_torch.kernels import fused_scan_shuffle as fss
 from repro_torch.kernels import grouped_agg as ga
 from repro_torch.kernels import hash_partition as hp
+from repro_torch.kernels import join_expand as je
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import predicate_bitmap as pb
 from repro_torch.kernels import ref
 from repro_torch.kernels.program import program_for
+from repro_torch.queryproc import operators as qops
 from repro_torch.queryproc import queries, tpch
 from repro_torch.queryproc.expressions import Col
+from repro_torch.queryproc.table import NP_OF, ColumnTable, gather, sort_key
 
 pytestmark = pytest.mark.gpu
 SUM_RTOL = 1e-9
@@ -553,6 +557,99 @@ def test_fused_scan_shuffle_reports_its_launch(cuda):
     assert got["tile_rows"] * got["blocks"] >= min(100_000, got["tile_rows"])
 
 
+JOIN_CASES = ("unique_1e7", "fanout", "skew_1e6", "none", "empty_left",
+              "empty_right", "float_nan", "int32_uint64", "uint64_wide")
+
+
+def _join_keys(case: str):
+    """(left keys, right keys) as numpy arrays: a key to a foreign key
+    (10^7 left rows, counts 0 and 1), duplicate right keys (fan-out 1 to
+    8), one left key matching 10^6 right rows, no match, an empty side,
+    float keys with NaN and -0.0, int32 against uint64 keys, uint64 keys
+    over their whole range (the probe's interpolation over the widest
+    gaps)."""
+    rng = np.random.default_rng(len(case))
+    if case == "unique_1e7":
+        right = rng.permutation(30_000_000)[:10_000_000].astype(np.int32)
+        left = np.sort(rng.integers(0, 30_000_000, 10_000_000)).astype(
+            np.int32)
+        return left, right
+    if case == "fanout":
+        base = rng.permutation(200_000)[:50_000]
+        right = np.repeat(base, rng.integers(1, 9, base.size))
+        return rng.choice(base, 300_000), right[rng.permutation(right.size)]
+    if case == "skew_1e6":
+        right = np.concatenate([np.full(1_000_000, 7),
+                                rng.integers(8, 5_000, 20_000)])
+        left = np.concatenate([rng.integers(0, 10_000, 50_000), [7],
+                               rng.integers(0, 10_000, 50_000)])
+        return left, right[rng.permutation(right.size)]
+    if case == "none":
+        return (rng.integers(10_000, 20_000, 100_000),
+                rng.integers(0, 10_000, 30_000))
+    if case == "empty_left":
+        return np.zeros(0, np.int64), rng.integers(0, 9, 100)
+    if case == "empty_right":
+        return rng.integers(0, 9, 100), np.zeros(0, np.int64)
+    if case == "float_nan":
+        vals = np.array([np.nan, -0.0, 0.0, 1.5, -2.25, np.inf, -np.inf])
+        return (rng.choice(vals, 100_000).astype(np.float32),
+                rng.choice(np.append(vals, rng.uniform(size=50)), 7_000))
+    if case == "int32_uint64":
+        return (rng.integers(-500, 2_000, 100_000).astype(np.int32),
+                rng.integers(0, 2_000, 9_000).astype(np.uint64))
+    if case == "uint64_wide":
+        base = np.concatenate([rng.integers(0, 2 ** 64 - 1, 50_000,
+                                            dtype=np.uint64),
+                               np.uint64([0, 2 ** 63, 2 ** 64 - 1])])
+        return (np.concatenate([rng.choice(base, 200_000), rng.integers(
+            0, 2 ** 64 - 1, 1_000, dtype=np.uint64)]),
+            rng.choice(base, 80_000))
+    raise ValueError(case)
+
+
+def _join_sides(left, right, device):
+    """(rv_sorted, r_order, lk) on ``device`` as ``hash_join`` builds
+    them."""
+    lv, rv = (torch.from_numpy(a).to(device) for a in (left, right))
+    common = np.result_type(NP_OF[lv.dtype], NP_OF[rv.dtype])
+    r_order = torch.sort(sort_key(rv), stable=True).indices
+    return (qops.key_in(gather(rv, r_order), common), r_order,
+            qops.key_in(lv, common))
+
+
+@pytest.mark.parametrize("case", JOIN_CASES)
+def test_join_kernels_match_plain(cuda, case):
+    """``join_probe`` and ``join_expand`` against their plain versions on
+    the card: lo, cnt, l_idx and r_idx bitwise."""
+    rv_sorted, r_order, lk = _join_sides(*_join_keys(case), cuda)
+    lo, cnt = je.join_probe(rv_sorted, lk)
+    plo, pcnt = je.plain_probe(rv_sorted, lk)
+    assert lo.dtype == torch.int64 and cnt.dtype == torch.int32
+    assert torch.equal(lo, plo) and torch.equal(cnt, pcnt)
+    ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+    n_out = int(ends[-1]) if len(ends) else 0
+    l_idx, r_idx = je.join_expand(lo, ends, r_order, n_out)
+    pl, pr = je.plain_expand(lo, ends, r_order, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(l_idx, pl) and torch.equal(r_idx, pr)
+    got = je.join_pairs(rv_sorted, r_order, lk)
+    assert torch.equal(got[0], pl) and torch.equal(got[1], pr)
+    if case == "skew_1e6":
+        assert int(cnt.max()) == 1_000_000
+
+
+def test_hash_join_launches_each_join_kernel_once(cuda):
+    left, right = _join_keys("fanout")
+    lt = ColumnTable({"k": torch.from_numpy(left).to(cuda)})
+    rt = ColumnTable({"j": torch.from_numpy(right).to(cuda)})
+    kernels.reset_launches()
+    for n in (1, 2):
+        qops.hash_join(lt, rt, "k", "j")
+        assert kernels.launches()["join_probe"] == n
+        assert kernels.launches()["join_expand"] == n
+
+
 def test_wrappers_count_their_launches(cuda):
     cols = _columns(1000, 0, cuda)
     ids = torch.zeros(1000, dtype=torch.int32, device=cuda)
@@ -566,10 +663,12 @@ def test_wrappers_count_their_launches(cuda):
     kops.hash_partition(ids, 4)
     kops.fused_scan_shuffle(cols, Col("a") < 3, ids, 4)
     kops.fused_scan_shuffle(cols, None, ids, 4)
+    je.join_pairs(*_join_sides(*_join_keys("fanout"), cuda))
     assert kernels.launches() == {"predicate_bitmap": 2, "fused_scan_agg": 1,
                                   "grouped_agg": 2, "bitmap_apply": 1,
                                   "hash_partition": 1,
-                                  "fused_scan_shuffle": 2}
+                                  "fused_scan_shuffle": 2, "join_probe": 1,
+                                  "join_expand": 1}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -586,6 +685,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ba.bitmap_apply(torch.zeros(1, dtype=torch.int32, device=cuda),
                         torch.zeros(64, dtype=torch.float64, device=cuda))
+    rv_sorted, r_order, lk = _join_sides(*_join_keys("fanout"), cuda)
+    with pytest.raises(TypeError):
+        je.join_probe(rv_sorted, lk.to(torch.int32))
+    with pytest.raises(TypeError):
+        je.join_probe(rv_sorted.to(torch.float64), lk)
+    with pytest.raises(ValueError):
+        je.join_probe(rv_sorted, lk[::2])
+    with pytest.raises(ValueError):
+        je.join_probe(rv_sorted.cpu(), lk)
+    lo, cnt = je.join_probe(rv_sorted, lk)
+    ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+    n_out = int(ends[-1])
+    with pytest.raises(TypeError):
+        je.join_expand(lo, ends.to(torch.int32), r_order, n_out)
+    with pytest.raises(ValueError):
+        je.join_expand(lo, ends, r_order[::2], n_out)
+    with pytest.raises(ValueError):
+        je.join_expand(lo, ends, r_order.cpu(), n_out)
 
 
 def test_one_launch_per_agg_batch_and_fig3_apply(cuda, catalogs):
@@ -732,7 +849,8 @@ def test_section42_paths_on_the_card_match_the_cpu(cuda, catalogs):
                 assert all(_same(s, t) for s, t in zip(a["shuffle_parts"],
                                                        b["shuffle_parts"]))
     assert all(v > 0 for k, v in kernels.launches().items()
-               if k not in ("fused_scan_agg", "grouped_agg"))
+               if k not in ("fused_scan_agg", "grouped_agg", "join_probe",
+                            "join_expand"))
 
 
 def _pooled_predicates(cols, n_vals, seed):

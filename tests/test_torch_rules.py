@@ -60,7 +60,8 @@ def test_the_rules_cover_the_cost_based_modules():
             "train/loop.py", "distributed/sharding.py",
             "distributed/constraints.py", "distributed/collectives.py",
             "launch/__init__.py", "launch/mesh.py", "launch/steps.py",
-            "launch/analysis.py", "launch/dryrun.py"} <= names
+            "launch/analysis.py", "launch/dryrun.py",
+            "kernels/join_expand.py"} <= names
 
 
 def _start_methods(path: Path):
@@ -258,7 +259,7 @@ def test_chip_smoke_phases_run_on_the_cpu():
     records, extra = smoke.kernel_phase(cat, host_ms)
     assert set(records) == set(smoke.REPLACES) == set(smoke.SOURCES) == {
         "predicate_bitmap", "fused_scan_agg", "grouped_agg", "bitmap_apply",
-        "hash_partition", "fused_scan_shuffle"}
+        "hash_partition", "fused_scan_shuffle", "join_probe", "join_expand"}
     assert all(r["bound_by"] == "bytes" and r["bound_ms"] > 0
                and r["max_abs_err"] == 0
                for n, r in records.items() if n not in ("fused_scan_agg",
